@@ -26,9 +26,13 @@ def main(argv=None):
                     help="RANSAC seed")
     ap.add_argument("--eval", action="store_true",
                     help="print ATE/RPE vs ground truth")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the CPU only when named (cpu)")
     args = ap.parse_args(argv)
 
-    from kbslam_torch._shared import config, synthetic, trajectory
+    from kbslam_torch import config
+    from kbslam_torch.eval import trajectory
+    from kbslam_torch.io import synthetic
     from kbslam_torch.slam import SLAM
 
     seq = synthetic.render_sequence(num_frames=args.frames, height=args.height,
@@ -37,7 +41,7 @@ def main(argv=None):
     cfg = config.DEFAULT_CONFIG.replace(image_height=args.height,
                                         image_width=args.width)
     slam = SLAM(cfg, seq.K, ba_mode="disabled", use_mask=False,
-                seed=args.seed)
+                seed=args.seed, device=args.device)
     print(f"kbslam_torch: device {slam.device}", file=sys.stderr)
     n = 0
     for i in range(len(seq.rgb)):

@@ -18,7 +18,7 @@ from kbslam_torch.pipeline import TrackState
 _INT32 = ("kf_mp", "kf_id", "num_kf", "num_mp")
 
 
-def map_to_torch(m, device=None) -> MapState:
+def map_to_torch(m, device) -> MapState:
     fields = {}
     for name in MapState._fields:
         a = np.asarray(getattr(m, name))
@@ -34,7 +34,7 @@ def map_to_numpy(m: MapState) -> MapState:
                        for name in MapState._fields})
 
 
-def to_torch(state, device=None) -> TrackState:
+def to_torch(state, device) -> TrackState:
     return TrackState(
         map=map_to_torch(state.map, device),
         pose_q=torch.tensor(np.asarray(state.pose_q, np.float32), device=device),

@@ -1,24 +1,28 @@
 """Rotated BRIEF (rBRIEF) 256-bit descriptors and the patches they read.
 
-Port of kbslam/frontend/brief.py. The sampling pattern is the
-reference's own file, ``kbslam/frontend/brief_pattern_learned.npy``,
-read by path with the same clip; the 30 rotated selection matrices and
+Port of kbslam/frontend/brief.py. The sampling pattern is the port's
+copy of the reference's ``brief_pattern_learned.npy`` (beside this
+file), read with the same clip; the 30 rotated selection matrices and
 the intensity-centroid weights are built from it the same way.
+
+The tracking step runs these stages fused in one CUDA kernel
+(``kbslam_torch/ops/describe.py``); the functions here are its plain
+composition and the parity surface against the reference.
 """
 from __future__ import annotations
 
 import functools
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from kbslam_torch._shared import REFERENCE_DIR
 from kbslam_torch.ops import patches as patch_ops
 
 DESC_BITS = 256
 PATTERN_CLIP = 13  # keeps rotated samples within the 31-px edge margin
-PATTERN_FILE = REFERENCE_DIR / "frontend" / "brief_pattern_learned.npy"
+PATTERN_FILE = Path(__file__).resolve().parent / "brief_pattern_learned.npy"
 
 _PATCH_R = 20          # covers the rotated pattern: 13*sqrt(2) + rounding
 _PATCH_S = 2 * _PATCH_R
@@ -91,19 +95,11 @@ def _ic_moment_vectors(radius: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(mv).to(device)
 
 
-def extract_patches(stacked: torch.Tensor, level_dims: torch.Tensor,
-                    xy: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
-    """One 40x40 patch per keypoint, [N, S^2].
-
-    stacked: [L, H0, W0] blurred pyramid (level l in its top-left
-    [h_l, w_l] corner); level_dims: [L, 2] int (h_l, w_l); xy: [N, 2]
-    level-coordinate keypoints; level: [N] int.
-
-    The reference's ``precision`` argument selected the TPU kernel's
-    matmul passes; it has no meaning here, because the CUDA kernel (and
-    its CPU twin) copy the patch exactly.
-    """
-    n = xy.shape[0]
+def patch_origins(level_dims: torch.Tensor, xy: torch.Tensor,
+                  level: torch.Tensor):
+    """(y0, x0) int32 [N]: the clamped top-left corner of each keypoint's
+    40x40 patch in its level. level_dims: [L, 2] int (h_l, w_l); xy:
+    [N, 2] level-coordinate keypoints; level: [N] int."""
     base = torch.round(xy).to(torch.int32)
     hw = level_dims.to(torch.int32)[level.to(torch.int64)]
     # upper clamp floored at 0: a level smaller than the patch (tiny
@@ -113,10 +109,25 @@ def extract_patches(stacked: torch.Tensor, level_dims: torch.Tensor,
     y_hi = torch.clamp(hw[:, 0] - _PATCH_S, min=0)
     x0 = torch.minimum(torch.clamp(base[:, 0] - _PATCH_R, min=0), x_hi)
     y0 = torch.minimum(torch.clamp(base[:, 1] - _PATCH_R, min=0), y_hi)
+    return y0.contiguous(), x0.contiguous()
+
+
+def extract_patches(stacked: torch.Tensor, level_dims: torch.Tensor,
+                    xy: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    """One 40x40 patch per keypoint, [N, S^2].
+
+    stacked: [L, H0, W0] blurred pyramid (level l in its top-left
+    [h_l, w_l] corner); level_dims, xy, level: as ``patch_origins``.
+
+    The reference's ``precision`` argument selected the TPU kernel's
+    matmul passes; it has no meaning here, because the CUDA kernel (and
+    its CPU twin) copy the patch exactly.
+    """
+    n = xy.shape[0]
+    y0, x0 = patch_origins(level_dims, xy, level)
     out = patch_ops.extract_patches(stacked.contiguous(),
                                     level.to(torch.int32).contiguous(),
-                                    y0.contiguous(), x0.contiguous(),
-                                    _PATCH_S)
+                                    y0, x0, _PATCH_S)
     return out.reshape(n, _PATCH_S * _PATCH_S)
 
 
@@ -143,12 +154,22 @@ def bits_from_patches(patches: torch.Tensor,
     Wt, used = _selection_on(patches.device)
     pq = patches[:, used].to(torch.bfloat16).to(torch.float32)
     diff_all = (pq @ Wt).reshape(n, N_ANGLE_BINS, 256)    # I2 - I1 per bin
-
-    two_pi = 2.0 * math.pi
-    frac = torch.remainder(angle, two_pi) / two_pi * N_ANGLE_BINS
-    bins = torch.remainder(torch.round(frac).to(torch.int64), N_ANGLE_BINS)
-    diff = diff_all[torch.arange(n, device=patches.device), bins]
+    diff = diff_all[torch.arange(n, device=patches.device), angle_bins(angle)]
     return (diff > 0).to(torch.uint8)
+
+
+def angle_frac(angle: torch.Tensor) -> torch.Tensor:
+    """The orientation in units of bins, [0, 30], float32."""
+    two_pi = 2.0 * math.pi
+    return torch.remainder(angle, two_pi) / two_pi * N_ANGLE_BINS
+
+
+def angle_bins(angle: torch.Tensor) -> torch.Tensor:
+    """The rotated pattern's bin of each angle, [N] int64 in [0, 30):
+    round half to even (``torch.round``, like ``jnp.round``), then
+    modulo 30."""
+    return torch.remainder(torch.round(angle_frac(angle)).to(torch.int64),
+                           N_ANGLE_BINS)
 
 
 def pack_bits(desc: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Port of kbslam/frontend/orb.py: per-level dense FAST + NMS + Harris
 maps, top-k selection into a fixed per-level quota, parabolic subpixel
 offsets, IC orientation and rBRIEF from 40x40 patches — padded to
-``max_features`` with a validity mask.
+``max_features`` with a validity mask. The patches, angles and bits come
+from one fused kernel (``ops/describe.py``), which never writes the
+patches out.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from kbslam_torch.frontend.fast import border_mask, fast_score_map, nms3x3
 from kbslam_torch.frontend.harris import harris_response
 from kbslam_torch.frontend.image import (
     build_pyramid, gaussian_blur, pyramid_sizes, rgb_to_gray, shift2d)
+from kbslam_torch.ops.describe import describe_keypoints
 from kbslam_torch.ops.incidence import incidence_gather
 
 _NEG = -1e30
@@ -140,8 +143,10 @@ def detect_and_compute(gray: torch.Tensor, mask: Optional[torch.Tensor],
 
     h0, w0 = sizes[0]
     xy_parts, val_parts, lvl_parts, resp_parts = [], [], [], []
-    stacked_blur = torch.zeros((cfg.num_levels, h0, w0), dtype=torch.float32,
-                               device=dev)
+    # the describe kernel copies rows in 16-byte pieces: the width is
+    # padded to a multiple of 4 floats (zeros no patch reaches)
+    stacked_blur = torch.zeros((cfg.num_levels, h0, -(-w0 // 4) * 4),
+                               dtype=torch.float32, device=dev)
     for lv in range(cfg.num_levels):
         img = pyr[lv]
         hl, wl = sizes[lv]
@@ -189,13 +194,13 @@ def detect_and_compute(gray: torch.Tensor, mask: Optional[torch.Tensor],
     valid = tab_p[:, 3] > 0.5
     levels = tab_p[:, 4].to(torch.int32)
 
-    # one patch pass for all levels: IC orientation and rBRIEF bits both
-    # read the same 40x40 patches
+    # one pass for all levels: each keypoint's 40x40 patch, its IC
+    # orientation and its rBRIEF bits
     level_dims, level_scale = _level_tables(tuple(sizes), cfg.scale_factor,
                                             dev)
-    patches = brief.extract_patches(stacked_blur, level_dims, xy_lvl, levels)
-    angle = brief.ic_angles(patches, radius=cfg.patch_size // 2)
-    desc = brief.bits_from_patches(patches, angle)
+    y0, x0 = brief.patch_origins(level_dims, xy_lvl, levels)
+    angle, desc = describe_keypoints(stacked_blur, levels.contiguous(), y0,
+                                     x0, radius=cfg.patch_size // 2)
 
     scales = level_scale[levels.to(torch.int64)]
     return Features(xy=xy_lvl * scales[:, None], response=resp, angle=angle,

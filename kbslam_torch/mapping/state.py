@@ -74,7 +74,7 @@ class MapState(NamedTuple):
         return torch.remainder(torch.clamp(ids, min=0), self.capacity_mp)
 
 
-def empty_map(map_cfg, orb_cfg, device=None) -> MapState:
+def empty_map(map_cfg, orb_cfg, device) -> MapState:
     m, f, p = map_cfg.max_keyframes, orb_cfg.max_features, map_cfg.max_map_points
     i32 = torch.int32
     return MapState(

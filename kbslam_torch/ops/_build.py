@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-``kbslam_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one
+``kbslam_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and link into one
 shared library with a plain C interface, under ``build/kbslam_torch/``
 at the repository root. The file name carries a hash of the sources and
 flags, so an edit rebuilds and an unchanged tree loads the cached
@@ -23,8 +24,10 @@ from typing import NamedTuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kbslam_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 class BuildResult(NamedTuple):
@@ -64,7 +67,7 @@ def _sources():
 
 def _digest(nvcc: str) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     h.update(nvcc.encode())
     for src in _sources():
         h.update(src.name.encode())
@@ -76,9 +79,37 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kbslam_extract_patches.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.kbslam_extract_patches.restype = i
+    lib.kbslam_describe_keypoints.argtypes = [p, p, p, p, p, p, p,
+                                              i, i, i, i, i, p]
+    lib.kbslam_describe_keypoints.restype = i
     lib.kbslam_cuda_error_string.argtypes = [i]
     lib.kbslam_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _compile_and_link(nvcc: str, tmp: Path) -> str:
+    """Every .cu to an object, in parallel, then one shared library
+    ``tmp/lib.so``; returns nvcc's output."""
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = tmp / f"{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for obj, proc in jobs:
+        log += proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(obj.stem)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp / "lib.so"),
+                           *(str(obj) for obj, _ in jobs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    return log
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,20 +122,10 @@ def build() -> BuildResult:
     log = ""
     cached = target.exists()
     if not cached:
-        cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-        # build into a private name, then rename: concurrent builders
+        # build in a private directory, then rename: concurrent builders
         # (several test processes) never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-                                  capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, target)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            log = _compile_and_link(nvcc, Path(tmp))
+            os.replace(Path(tmp) / "lib.so", target)
     lib = _declare(ctypes.CDLL(str(target)))
     return BuildResult(lib, target, time.perf_counter() - t0, cached, log)

@@ -60,7 +60,7 @@ class TrackOutput(NamedTuple):
     anchor_t: torch.Tensor      # [3]
 
 
-def init_state(cfg, device=None) -> TrackState:
+def init_state(cfg, device) -> TrackState:
     return TrackState(
         map=empty_map(cfg.map, cfg.orb, device),
         pose_q=torch.tensor([1.0, 0, 0, 0], device=device),

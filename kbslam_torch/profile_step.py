@@ -44,7 +44,7 @@ def _timed(table, name, fn):
 def _stage_hooks(table):
     """(module, attribute, stage name) wrapped by the staged run."""
     from kbslam_torch import pipeline
-    from kbslam_torch.frontend import brief, orb
+    from kbslam_torch.frontend import orb
 
     return [
         (pipeline, "extract_frame", "frontend"),
@@ -54,9 +54,7 @@ def _stage_hooks(table):
         (orb, "harris_response", "frontend/harris"),
         (orb, "select_level", "frontend/topk_select"),
         (orb, "gaussian_blur", "frontend/blur"),
-        (brief, "extract_patches", "frontend/patches(kernel)"),
-        (brief, "ic_angles", "frontend/ic_angles"),
-        (brief, "bits_from_patches", "frontend/brief_bits"),
+        (orb, "describe_keypoints", "frontend/describe(kernel)"),
         (pipeline, "knn2_ratio_match", "match"),
         (pipeline, "ransac_pnp", "ransac"),
         (pipeline, "insert_keyframe", "insert_keyframe"),
@@ -70,11 +68,12 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=640)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step: needs a CUDA device")
-
-    from kbslam_torch._shared import config, synthetic
+    from kbslam_torch import config
+    from kbslam_torch.device import pick_device
+    from kbslam_torch.io import synthetic
     from kbslam_torch.slam import SLAM
+
+    dev = pick_device()     # the card; raises without one
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -93,7 +92,7 @@ def main(argv=None):
         return walls
 
     # 1. plain
-    plain = run(SLAM(cfg, seq.K))
+    plain = run(SLAM(cfg, seq.K, device=dev))
     # 2. staged
     table = collections.defaultdict(list)
     hooks = _stage_hooks(table)
@@ -101,14 +100,14 @@ def main(argv=None):
     for m, a, name in hooks:
         setattr(m, a, _timed(table, name, getattr(m, a)))
     try:
-        staged = run(SLAM(cfg, seq.K))
+        staged = run(SLAM(cfg, seq.K, device=dev))
     finally:
         for m, a, fn in saved:
             setattr(m, a, fn)
     # 3. profiled (frames after the first two)
     from torch.profiler import ProfilerActivity, profile
 
-    slam = SLAM(cfg, seq.K)
+    slam = SLAM(cfg, seq.K, device=dev)
     for i in range(2):
         slam.process(seq.rgb[i], seq.depth[i])
     n_prof = min(5, args.frames - 2)

@@ -8,9 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from kbslam_torch._shared import config, synthetic
+from kbslam_torch import config
+from kbslam_torch.frontend import brief as tbrief
 from kbslam_torch.frontend.image import pyramid_sizes
 from kbslam_torch.geom.camera import Intrinsics
+from kbslam_torch.io import synthetic
+from kbslam_torch.ops import describe as tdescribe
 from kbslam_torch.ops import patches as tpatches
 from kbslam_torch.pipeline import init_state, make_track_step
 from kbslam_torch.pnp.ransac import draw_valid_indices
@@ -23,7 +26,7 @@ torch.set_num_threads(1)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the patch kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     from kbslam_torch.device import pick_device
 
     return pick_device("cuda")
@@ -72,6 +75,52 @@ def test_kernel_rejects_bad_input(cuda_device):
     assert tpatches.launches == before
 
 
+def _describe_gates(got, ref):
+    """chip_smoke.py's gates: angles within 2e-4 rad; on every keypoint
+    whose twin bin fraction lies 1e-3 or more from a rounding edge, the
+    same bin and all 256 bits equal (nearer an edge the twin's division
+    by a scalar, a multiply by the reciprocal on the card, may move the
+    bin); at least 99.9% of keypoints bit-identical."""
+    (ga, gb), (ra, rb) = got, ref
+    assert ga.shape == ra.shape and gb.shape == rb.shape
+    assert gb.dtype == torch.uint8 and int(gb.max()) <= 1
+    assert float((ga - ra).abs().max()) <= 2e-4
+    frac = tbrief.angle_frac(ra).cpu().double().numpy()
+    away = np.abs(frac - np.floor(frac) - 0.5) >= 1e-3
+    kbin = tbrief.angle_bins(ga.cpu()).numpy()  # the kernel's float32 ops
+    rbin = tbrief.angle_bins(ra).cpu().numpy()  # the bins the twin used
+    same = (gb == rb).all(1).cpu().numpy()
+    assert not ((kbin != rbin) & away).any()
+    assert not (~same & away).any()
+    assert same.mean() >= 0.999
+
+
+@pytest.mark.parametrize("h,w,n", [(480, 640, 3072), (480, 640, 3071),
+                                   (64, 96, 130), (64, 96, 1)])
+def test_describe_kernel_matches_plain_and_counts(cuda_device, h, w, n):
+    args = _inputs(h, w, n, cuda_device, seed=n)
+    before = tdescribe.launches
+    got = tdescribe.describe_keypoints(*args)
+    torch.cuda.synchronize()
+    assert tdescribe.launches == before + 1
+    _describe_gates(got, tdescribe.describe_keypoints_reference(*args))
+
+
+def test_describe_kernel_rejects_bad_input(cuda_device):
+    st, lv, yy, xx = _inputs(64, 96, 8, cuda_device)
+    before = tdescribe.launches
+    for bad in ((st.double(), lv, yy, xx), (st, lv.long(), yy, xx),
+                (st, lv.cpu(), yy, xx), (st[:, :30].contiguous(), lv, yy, xx),
+                (st.transpose(1, 2), lv, yy, xx), (st, lv[:4], yy, xx),
+                (st[:, :, :94].contiguous(), lv, yy, xx),
+                (st, lv, torch.stack([yy, yy], 1)[:, 0], xx),
+                (torch.cat([st.new_zeros(1), st.reshape(-1)])[1:].view(
+                    st.shape), lv, yy, xx)):
+        with pytest.raises(ValueError):
+            tdescribe.describe_keypoints(*bad)
+    assert tdescribe.launches == before
+
+
 def _cpu_sampler(frame_count):
     """Minimal sets drawn on the CPU from a fixed seed, then moved to the
     tensors' device, so CPU and CUDA runs solve the same hypotheses."""
@@ -88,9 +137,10 @@ def _cpu_sampler(frame_count):
 
 def test_tracking_step_cuda_matches_cpu(cuda_device):
     """The tracking step on the card against the same step on the CPU
-    (the CPU runs the plain patch twin): the same keyframe and success
+    (the CPU runs the plain describe twin): the same keyframe and success
     decisions, poses within 1 cm and 0.5 deg (float32 sums in another
-    order on the card)."""
+    order on the card). The card's step launches the describe kernel
+    once per frame and the patch kernel never."""
     seq = synthetic.render_sequence(num_frames=12, height=240, width=320)
     cfg = config.SLAMConfig(
         image_height=240, image_width=320,
@@ -103,14 +153,16 @@ def test_tracking_step_cuda_matches_cpu(cuda_device):
                                sampler_for_frame=_cpu_sampler)
         state = init_state(cfg, dev)
         outs = []
-        before = tpatches.launches
+        before = (tdescribe.launches, tpatches.launches)
         for i in range(len(seq.rgb)):
             state, o = step(state, torch.from_numpy(seq.rgb[i]).to(dev),
                             torch.from_numpy(seq.depth[i].astype(np.int32)).to(dev))
             outs.append((bool(o.success), bool(o.added_kf),
                          pose_T(o.pose_q.cpu().numpy(), o.pose_t.cpu().numpy())))
-        runs[dev.type] = (outs, tpatches.launches - before)
-    assert runs["cpu"][1] == 0 and runs["cuda"][1] == len(seq.rgb)
+        runs[dev.type] = (outs, (tdescribe.launches - before[0],
+                                 tpatches.launches - before[1]))
+    assert runs["cpu"][1] == (0, 0)
+    assert runs["cuda"][1] == (len(seq.rgb), 0)
     for (sc, kc, Tc), (sg, kg, Tg) in zip(runs["cpu"][0], runs["cuda"][0]):
         assert (sc, kc) == (sg, kg)
         assert np.linalg.norm(Tc[:3, 3] - Tg[:3, 3]) < 0.01

@@ -64,7 +64,7 @@ def _run(steps, seed, dup_targets):
     after every step."""
     rng = np.random.default_rng(seed)
     mj = jstate.empty_map(MAP, ORB)
-    mt = tstate.empty_map(MAP, ORB)
+    mt = tstate.empty_map(MAP, ORB, "cpu")
     for i in range(steps):
         xy, depth, desc, valid, q, t = _frame(rng)
         best, is_match, z = _match(rng, dup_targets)
@@ -108,7 +108,7 @@ def test_duplicate_target_scatter_last_lane_wins():
     """Two previous-keyframe keypoints matched to one current keypoint:
     the current slot takes the id of the LAST such lane, as JAX's CPU
     scatter does; pinned on a hand-made case and over a run."""
-    m = tstate.empty_map(MAP, ORB)
+    m = tstate.empty_map(MAP, ORB, "cpu")
     m = m._replace(num_kf=torch.tensor(2, dtype=torch.int32))
     best = torch.zeros(F, dtype=torch.int32)
     best[3], best[10], best[40] = 7, 7, 7
@@ -125,14 +125,14 @@ def test_duplicate_target_scatter_last_lane_wins():
 def test_window_slots_exact():
     for n in (0, 3, 8, 13):
         mj = jstate.empty_map(MAP, ORB)._replace(num_kf=jnp.int32(n))
-        mt = tstate.empty_map(MAP, ORB)._replace(
+        mt = tstate.empty_map(MAP, ORB, "cpu")._replace(
             num_kf=torch.tensor(n, dtype=torch.int32))
         for a, b in zip(tstate.window_slots(mt, 5), jstate.window_slots(mj, 5)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_liveness_uses_floor_modulo():
-    m = tstate.empty_map(MAP, ORB)._replace(
+    m = tstate.empty_map(MAP, ORB, "cpu")._replace(
         num_mp=torch.tensor(150, dtype=torch.int32))
     ids = torch.tensor([-1, 0, 85, 86, 149, 100], dtype=torch.int32)
     mj = jstate.empty_map(MAP, ORB)._replace(num_mp=jnp.int32(150))
@@ -164,7 +164,7 @@ def test_policy_decisions_exact():
 
 def test_convert_map_round_trip_exact():
     mt, mj = _run(10, 4, dup_targets=False)
-    back = convert.map_to_torch(jax.device_get(mj))
+    back = convert.map_to_torch(jax.device_get(mj), "cpu")
     _assert_maps_equal(back, mj)
     again = convert.map_to_numpy(back)
     rebuilt = jstate.MapState(**again._asdict())

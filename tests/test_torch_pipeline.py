@@ -86,7 +86,7 @@ def runs():
         jouts.append(_out(jax.device_get(o)))
     tstep = t_make(cfg, TIntr.from_matrix(seq.K), use_mask=False,
                    sampler_for_frame=_jax_sampler_for_frame)
-    touts, _ = _run_torch(tstep, t_init(cfg), seq, range(N))
+    touts, _ = _run_torch(tstep, t_init(cfg, "cpu"), seq, range(N))
     return dict(seq=seq, cfg=cfg, jstep=jstep, tstep=tstep, jouts=jouts,
                 touts=touts, resume_state=resume_state)
 
@@ -124,7 +124,7 @@ def test_convert_round_trip_resumes_mid_sequence(runs):
     tracks frames 10-19 as the reference did; converted back, it is the
     same state bit for bit and the reference resumes from it exactly."""
     seq, js = runs["seq"], runs["resume_state"]
-    tstate = convert.to_torch(js)
+    tstate = convert.to_torch(js, "cpu")
     back = convert.to_numpy(tstate)
     for name in JMapState._fields:
         np.testing.assert_array_equal(getattr(back.map, name),
@@ -153,7 +153,8 @@ def _env():
 def test_cli_smoke():
     r = subprocess.run(
         [sys.executable, "-m", "kbslam_torch.cli", "--source", "synthetic",
-         "--frames", "8", "--width", "160", "--height", "120", "--eval"],
+         "--frames", "8", "--width", "160", "--height", "120", "--eval",
+         "--device", "cpu"],
         capture_output=True, text=True, cwd=REPO, env=_env(), timeout=300)
     assert r.returncode == 0, r.stderr
     summary = json.loads(r.stdout.strip().splitlines()[-1])
@@ -168,10 +169,16 @@ def test_cli_smoke():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, kbslam_torch, kbslam_torch.pipeline, "
-            "kbslam_torch.cli, kbslam_torch.slam, kbslam_torch.convert; "
+    """Neither JAX nor the kbslam package by name, and no module loaded
+    from a file under kbslam/ under any name."""
+    code = ("import sys, os, kbslam_torch, kbslam_torch.pipeline, "
+            "kbslam_torch.cli, kbslam_torch.slam, kbslam_torch.convert, "
+            "kbslam_torch.profile_step, kbslam_torch.ops.describe; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'kbslam' "
             "or m.startswith(('jax.', 'kbslam.'))]; "
+            "ref = os.path.join(os.getcwd(), 'kbslam') + os.sep; "
+            "bad += [m for m, mod in list(sys.modules.items()) "
+            "if (getattr(mod, '__file__', None) or '').startswith(ref)]; "
             "assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=_env(), timeout=120)
