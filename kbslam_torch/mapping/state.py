@@ -74,6 +74,13 @@ class MapState(NamedTuple):
         return torch.remainder(torch.clamp(ids, min=0), self.capacity_mp)
 
 
+def device_copy(state: MapState) -> MapState:
+    """A map whose every tensor is a fresh copy (``clone``): the
+    snapshot an asynchronous solve reads, which the step's in-place
+    writes to the live map cannot reach."""
+    return MapState(*(t.clone() for t in state))
+
+
 def empty_map(map_cfg, orb_cfg, device) -> MapState:
     m, f, p = map_cfg.max_keyframes, orb_cfg.max_features, map_cfg.max_map_points
     i32 = torch.int32
@@ -121,8 +128,8 @@ def _last_lane_wins(target: torch.Tensor, active: torch.Tensor,
     return torch.where(active & (last[tgt] == lanes), tgt, size)
 
 
-def _scatter_rows(arr: torch.Tensor, target: torch.Tensor,
-                  active: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+def scatter_rows(arr: torch.Tensor, target: torch.Tensor,
+                 active: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """arr[target[i]] = values[i] for active lanes, last lane winning;
     returns a new tensor (one spare row is appended and cut off)."""
     size = arr.shape[0]
@@ -192,17 +199,17 @@ def create_map_points(state: MapState, match, intr_fx, intr_fy, intr_cx,
 
     P = state.capacity_mp
     mp_slot = torch.remainder(new_id, P)
-    mp_pos = _scatter_rows(state.mp_pos, mp_slot, needs_new, p_world)
-    mp_valid = _scatter_rows(state.mp_valid, mp_slot, needs_new,
-                             torch.ones_like(needs_new))
+    mp_pos = scatter_rows(state.mp_pos, mp_slot, needs_new, p_world)
+    mp_valid = scatter_rows(state.mp_valid, mp_slot, needs_new,
+                            torch.ones_like(needs_new))
 
     # previous keyframe gains the new ids; the current one gains
     # new-or-shared ids; unmatched stale entries are scrubbed to empty
     no_mp = torch.full_like(prev_mp, NO_MP)
     prev_mp_new = torch.where(needs_new, new_id,
                               torch.where(prev_live, prev_mp, no_mp))
-    curr_mp_new = _scatter_rows(take_row(state.kf_mp, curr_slot), t_idx, matched,
-                                prev_mp_new)
+    curr_mp_new = scatter_rows(take_row(state.kf_mp, curr_slot), t_idx, matched,
+                               prev_mp_new)
 
     kf_mp = _write_row(state.kf_mp, prev_slot, prev_mp_new, do)
     kf_mp = _write_row(kf_mp, curr_slot, curr_mp_new, do)

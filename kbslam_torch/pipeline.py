@@ -6,9 +6,12 @@ eager torch on one device. The step makes no host round trip: every
 decision (success, insertion) stays a device tensor and gates the map
 writes by masking.
 
-Not ported yet (they raise ``NotImplementedError``): tracking against a
-bank of several keyframes (``track_keyframes > 1``) and deferred
-insertion (``defer_insert``) — ROADMAP.md, "Slice A, left for later".
+With ``track_keyframes = NK > 1`` the frame is matched against a bank
+of the last NK keyframes, gathered by one ``index_select`` of their ring
+slots, with the bank's points in the world frame.
+
+Not ported yet (it raises ``NotImplementedError``): deferred insertion
+(``defer_insert``) — ROADMAP.md, "Slice A, left for later".
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from kbslam_torch.geom.se3 import SE3
 from kbslam_torch.mapping import policy as kf_policy
 from kbslam_torch.mapping.state import (MapState, create_map_points,
                                         empty_map, insert_keyframe, take_row)
-from kbslam_torch.matching.hamming import knn2_ratio_match
+from kbslam_torch.matching.hamming import MatchResult, knn2_ratio_match
 from kbslam_torch.ops.incidence import incidence_gather
 from kbslam_torch.pnp.ransac import Sampler, generator_sampler, ransac_pnp
 
@@ -114,20 +117,38 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
     """One frame: rgb [H, W, 3] uint8, depth [H, W] int32, mask [H, W]
     (nonzero = keep) or None -> (new state, TrackOutput). ``sampler``
     draws RANSAC's minimal sets (see kbslam_torch.pnp.ransac)."""
-    if int(cfg.track_keyframes) > 1:
-        raise NotImplementedError(f"track_keyframes > 1 {_LATER}")
     if defer_insert:
         raise NotImplementedError(f"defer_insert {_LATER}")
     m = state.map
     empty = m.is_empty()
     feats, depth_kp = extract_frame(rgb, depth, mask, intr, cfg)
 
-    # --- match against the last keyframe -----------------------------------
+    # --- match against the last keyframe(s) ----------------------------------
     slot = m.last_slot()
-    q_desc = take_row(m.kf_desc, slot)
-    q_valid = take_row(m.kf_kp_valid, slot) & ~empty
-    pts3d = unproject(intr, take_row(m.kf_kp_xy, slot),
-                      take_row(m.kf_kp_depth, slot))
+    NK = max(1, int(cfg.track_keyframes))
+    if NK == 1:
+        q_desc = take_row(m.kf_desc, slot)
+        q_valid = take_row(m.kf_kp_valid, slot) & ~empty
+        pts3d = unproject(intr, take_row(m.kf_kp_xy, slot),
+                          take_row(m.kf_kp_depth, slot))
+    else:
+        # the last NK keyframes, newest first, in one gather of their
+        # slots; the bank's points are in the world frame, so one PnP
+        # constrains against all of them
+        ids = m.num_kf - 1 - torch.arange(NK, dtype=torch.int32,
+                                          device=m.num_kf.device)
+        kslots = torch.remainder(torch.clamp(ids, min=0),
+                                 m.capacity_kf).to(torch.int64)
+
+        def bank(arr):
+            return arr.index_select(0, kslots)              # [NK, ...]
+
+        q_desc = bank(m.kf_desc).reshape(-1, m.kf_desc.shape[-1])
+        q_valid = ((bank(m.kf_kp_valid) & (ids >= 0)[:, None]).reshape(-1)
+                   & ~empty)
+        p_cam = unproject(intr, bank(m.kf_kp_xy), bank(m.kf_kp_depth))
+        kf_T = SE3(bank(m.kf_q)[:, None, :], bank(m.kf_t)[:, None, :])
+        pts3d = kf_T.apply(p_cam).reshape(-1, 3)
     match = knn2_ratio_match(q_desc, q_valid, feats.desc, feats.valid,
                              cfg.matcher.ratio,
                              cross_check=cfg.matcher.cross_check)
@@ -164,9 +185,13 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
     ratio_all = num_inliers_all.to(torch.float32) / torch.clamp(
         num_matches.to(torch.float32), min=1.0)
 
-    # reference chaining: T = kf.pose * T_cw^-1
     last_kf_pose = SE3(take_row(m.kf_q, slot), take_row(m.kf_t, slot))
-    new_pose = last_kf_pose.compose(pnp.T_cw.inverse()).normalize()
+    if NK == 1:
+        # reference chaining: T = kf.pose * T_cw^-1
+        new_pose = last_kf_pose.compose(pnp.T_cw.inverse()).normalize()
+    else:
+        # world-frame solve: the camera pose is T_cw^-1 directly
+        new_pose = pnp.T_cw.inverse().normalize()
     pose = SE3(torch.where(success, new_pose.q, state.pose_q),
                torch.where(success, new_pose.t, state.pose_t))
 
@@ -178,8 +203,11 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
     do_insert = empty | add_kf
 
     # --- insertion + landmark fusion (masked; no branch) ---------------------
+    # fusion uses the matches against the previous-last keyframe only: the
+    # first F rows of the bank
+    fuse = MatchResult(*(f[:feats.capacity] for f in match))
     new_map = insert_keyframe(m, feats, depth_kp, pose, do=do_insert)
-    new_map = create_map_points(new_map, match, intr.fx, intr.fy, intr.cx,
+    new_map = create_map_points(new_map, fuse, intr.fx, intr.fy, intr.cx,
                                 intr.cy, do=do_insert & ~empty)
 
     a_slot = new_map.last_slot()

@@ -143,6 +143,25 @@ def test_convert_round_trip_resumes_mid_sequence(runs):
     _compare(touts, runs["jouts"][RESUME_AT:])
 
 
+def test_nk3_bank_matches(runs):
+    """track_keyframes=3: the frame is matched against a bank of the last
+    three keyframes in the world frame. Same bounds as the NK=1 run."""
+    seq = runs["seq"]
+    cfg = runs["cfg"].replace(track_keyframes=3)
+    jstep = j_make(cfg, JIntr.from_matrix(seq.K), use_mask=False)
+    state, jouts = j_init(cfg), []
+    for i in range(N):
+        state, o = jstep(state, jnp.asarray(seq.rgb[i]),
+                         jnp.asarray(seq.depth[i]), jax.random.PRNGKey(i))
+        jouts.append(_out(jax.device_get(o)))
+    tstep = t_make(cfg, TIntr.from_matrix(seq.K), use_mask=False,
+                   sampler_for_frame=_jax_sampler_for_frame)
+    touts, tstate = _run_torch(tstep, t_init(cfg, "cpu"), seq, range(N))
+    assert all(o["success"] for o in jouts[1:])
+    assert int(tstate.map.num_kf) >= 2
+    _compare(touts, jouts)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
@@ -150,22 +169,27 @@ def _env():
     return env
 
 
-def test_cli_smoke():
+def _cli(*args):
     r = subprocess.run(
         [sys.executable, "-m", "kbslam_torch.cli", "--source", "synthetic",
          "--frames", "8", "--width", "160", "--height", "120", "--eval",
-         "--device", "cpu"],
+         "--device", "cpu", *args],
         capture_output=True, text=True, cwd=REPO, env=_env(), timeout=300)
     assert r.returncode == 0, r.stderr
-    summary = json.loads(r.stdout.strip().splitlines()[-1])
-    assert set(summary) == {"frames", "success", "keyframes", "ba_runs",
-                            "mean_track_ms", "ate_rmse_m", "rpe_trans_m",
-                            "rpe_rot_rad"}
-    assert summary["frames"] == 8 and summary["ba_runs"] == 0
-    bad = subprocess.run(
-        [sys.executable, "-m", "kbslam_torch.cli", "--ba", "on"],
-        capture_output=True, text=True, cwd=REPO, env=_env(), timeout=120)
-    assert bad.returncode == 2
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_cli_smoke():
+    """--ba off runs no solve; --ba on (the default) solves after each
+    keyframe and reports the refined trajectory's ATE."""
+    keys = {"frames", "success", "keyframes", "ba_runs", "mean_track_ms",
+            "ate_rmse_m", "rpe_trans_m", "rpe_rot_rad"}
+    off = _cli("--ba", "off")
+    assert set(off) == keys
+    assert off["frames"] == 8 and off["ba_runs"] == 0
+    on = _cli()
+    assert set(on) == keys | {"ate_rmse_refined_m"}
+    assert on["frames"] == 8 and on["ba_runs"] >= 1
 
 
 def test_port_imports_no_jax():
@@ -173,7 +197,8 @@ def test_port_imports_no_jax():
     from a file under kbslam/ under any name."""
     code = ("import sys, os, kbslam_torch, kbslam_torch.pipeline, "
             "kbslam_torch.cli, kbslam_torch.slam, kbslam_torch.convert, "
-            "kbslam_torch.profile_step, kbslam_torch.ops.describe; "
+            "kbslam_torch.profile_step, kbslam_torch.ops.describe, "
+            "kbslam_torch.ba.local_ba, kbslam_torch.ba.merge; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'kbslam' "
             "or m.startswith(('jax.', 'kbslam.'))]; "
             "ref = os.path.join(os.getcwd(), 'kbslam') + os.sep; "
