@@ -46,17 +46,45 @@ non-zero):
                 tracks with >= 50 inliers, ATE under 5 cm and the refined
                 trajectory's within 1 mm of it or better; prints the
                 median ms of frames with and without a solve;
-  8. async    — the same 60 frames with ``ba_mode="async"`` (solve on a
-                side stream, merged after an event poll), then
-                ``finish()``: at least one merge, ATE under 5 cm; prints
-                the wall time of each frame that dispatched a solve;
+  8. async    — the same 60 frames with ``ba_mode="async"`` (a captured
+                solve replayed on a side stream, merged after an event
+                poll), then ``finish()``: at least one merge, ATE under
+                5 cm; prints the wall time of each frame that dispatched
+                a solve;
   9. nk3      — the hard scene of tests/test_ba_in_loop.py (40 frames of
                 320x240 spheres, 2 mm depth noise, 2% dropout,
                 ``track_keyframes=3``) on seeds 0-2, BA off then on, held
                 to that test's absolute gates; its relative gate (BA on
-                <= 1.05 x BA off + 1 mm) is printed, not enforced.
+                <= 1.05 x BA off + 1 mm) is printed, not enforced;
+ 10. chunk    — the 60 frames through ``streaming.ChunkedStream`` with
+                chunk 8 and BA off (7 replays of one captured CUDA graph
+                of 8 steps, then 4 eager tail frames), three times, each
+                run against the eager per-frame step on the card: equal
+                success, keyframe and inlier counts, poses within 1e-5;
+                the minimal sets of frames 0-7 equal on the CPU and the
+                card; the eager step (after frame 0) and every dispatch
+                after the capture run under sync debug mode "error"; a
+                profiled replay runs the describe kernel once per frame
+                of the chunk; prints graph launches, kernel nodes and
+                kernel ms per chunk, host ms per dispatch, ms/frame and
+                frames/s of each run, device busy share, peak device
+                memory and ATE;
+ 11. chunk_async — the same with ``ba_mode="async"``: solves replay a
+                captured local-BA graph on a side stream and merge
+                chunk-late; every dispatched solve merged, tracking and
+                ATE gates as in phase 8; the graphed solve bit-equal to
+                the eager one on the final map; prints the host ms of
+                the feeds that dispatched a solve and the solve's replay
+                ms;
+ 12. checkpoint — a chunked run saved at frame 32 and resumed in a fresh
+                stream: frames 32-59 equal phase 10's uninterrupted run.
 Then one JSON line about the kernels, the nvidia-smi line, and the
-result line.
+result line. The describe kernel's launch count sums phases 5, 7 and
+10. In phase 10 the wrapper's counter counts the eager calls (the
+warm-up before the capture and the tail; a call inside the capture
+launches nothing and is not counted), and the graph's replays, which no
+Python runs, add the stream's replay count times the kernel's launches
+in one replay, counted by torch.profiler.
 
 Times: device time per call, from CUDA events around the replay of a
 CUDA graph of 20 calls (so a wrapper's host time is not counted), and
@@ -87,6 +115,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 S = 40
 BA_WINDOW = 5          # BAConfig.window: phase 6 solves a full window
+CHUNK = 8              # frames per replay of the chunk graph (phases 10-12)
 
 
 def nvidia_smi_line() -> str:
@@ -116,6 +145,8 @@ def cuda_ms(fn, iters: int = 20, replays: int = 10) -> float:
     """Device milliseconds per call: ``iters`` calls captured in one CUDA
     graph and replayed under CUDA events, so the host's time per call is
     not counted."""
+    from kbslam_torch.device import graph_capture
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -123,7 +154,7 @@ def cuda_ms(fn, iters: int = 20, replays: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with graph_capture(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -379,13 +410,12 @@ def async_phase(dev, seq, smi):
     from kbslam_torch.slam import SLAM
 
     slam = SLAM(config.SLAMConfig(), seq.K, ba_mode="async", device=dev)
-    if slam._ba_stream is None:
-        raise AssertionError("async BA has no side stream on the card")
     dispatch_ms = []
     for i in range(len(seq.rgb)):
-        before = slam._ba_inflight
+        before = slam._async.inflight
         d = slam.process(seq.rgb[i], seq.depth[i])
-        if slam._ba_inflight is not None and slam._ba_inflight is not before:
+        if (slam._async.inflight is not None
+                and slam._async.inflight is not before):
             dispatch_ms.append((i, round(d["wall_ms"], 2)))
     merged = sum(d["ran_ba"] for d in slam.diagnostics)
     median = np.median([d["wall_ms"] for d in slam.diagnostics[1:]])
@@ -393,6 +423,8 @@ def async_phase(dev, seq, smi):
     ate, ate_ref = check_ba_run(slam, seq)
     if merged < 1:
         raise AssertionError("async BA merged no solve while tracking")
+    if slam._async._graph is None:
+        raise AssertionError("async BA ran no captured solve on the card")
     print(f"[async] {FRAMES} frames 640x480, ba_mode=async: "
           f"{len(slam.ba_stats)} solves, {merged} merged while tracking, "
           f"ATE {ate * 1e3:.2f} mm, refined {ate_ref * 1e3:.2f} mm; "
@@ -439,6 +471,304 @@ def nk3_phase(dev, smi):
               f"{'holds' if rel else 'misses'}; {smi}", flush=True)
 
 
+def _stream(cs, seq, frames, sync_checked=False):
+    """Feed ``frames`` of ``seq`` to the ChunkedStream ``cs`` and flush.
+    Returns (results, a timing CUDA event recorded after each dispatch,
+    host ms of each dispatch, [(frame, host ms)] of the feeds that
+    dispatched a solve). An event completes when its chunk's work has,
+    so the events' spacing is the chunks' pace on the device's clock,
+    idle gaps included. With ``sync_checked`` every dispatch after the
+    first (the first captures the graph) runs under sync debug mode
+    "error"."""
+    dispatch = cs._dispatch
+    ends, host_ms = [], []
+
+    def checked(n):
+        first = cs._graph is None
+        if sync_checked and not first:
+            torch.cuda.set_sync_debug_mode("error")
+        t = time.perf_counter()
+        try:
+            dispatch(n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+
+    def inflight():
+        return cs._async.inflight if cs._async is not None else None
+
+    cs._dispatch = checked
+    got, ba_feeds = [], []
+    for i in frames:
+        before = inflight()
+        t = time.perf_counter()
+        got += cs.feed(seq.rgb[i], seq.depth[i])
+        if inflight() is not None and inflight() is not before:
+            ba_feeds.append((i, round((time.perf_counter() - t) * 1e3, 2)))
+    got += cs.flush()
+    torch.cuda.synchronize()
+    del cs._dispatch     # the method again, and no reference cycle
+    return got, ends, host_ms, ba_feeds
+
+
+def _same_results(got, ref, what):
+    """The chunk gates: equal success, keyframe and inlier counts, poses
+    within 1e-5. Returns the largest pose difference."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{what}: {len(got)} results for {len(ref)}")
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        for k in ("success", "added_kf", "num_inliers"):
+            if g[k] != r[k]:
+                raise AssertionError(
+                    f"{what}, frame {i}: {k} {g[k]} != {r[k]}")
+        worst = max(worst, float(np.abs(g["pose_q"] - r["pose_q"]).max()),
+                    float(np.abs(g["pose_t"] - r["pose_t"]).max()))
+    if worst > 1e-5:
+        raise AssertionError(f"{what}: poses differ by {worst}")
+    return worst
+
+
+def _replay_profile(graph):
+    """One replay of ``graph`` under torch.profiler: (graph launches,
+    kernels run, kernel ms, describe kernels run, describe kernel ms,
+    the five kernels with the most device time as (name, count, ms))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    desc = [e for e in kernels if "describe" in e.name]
+    launches = sum("GraphLaunch" in e.name for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU)
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name[:48], (0, 0.0))
+        by_name[e.name[:48]] = (n + 1, t + e.device_time / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return (launches, len(kernels), sum(e.device_time for e in kernels) / 1e3,
+            len(desc), sum(e.device_time for e in desc) / 1e3,
+            [(k, n, round(t, 2)) for k, (n, t) in top])
+
+
+def chunk_phase(dev, seq, smi):
+    """(10) The chunked streaming executor with ba_mode="off" against the
+    eager per-frame path on the card. Returns (the chunked results, the
+    describe launch count of the run)."""
+    from kbslam_torch import config
+    from kbslam_torch.eval import trajectory
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.ops import describe as describe_ops
+    from kbslam_torch.pipeline import init_state, make_track_step
+    from kbslam_torch.pnp.ransac import hash_sampler
+    from kbslam_torch.slam import output_to_host, pose_T
+    from kbslam_torch.streaming import ChunkedStream
+
+    cfg = config.SLAMConfig()
+    intr = Intrinsics.from_matrix(seq.K)
+    # the first frames' minimal sets: the same on the CPU and the card
+    valid = (torch.arange(1024) % 3) != 0
+    for f in range(8):
+        fc = torch.tensor(f, dtype=torch.int32)
+        a = hash_sampler(0, fc)(valid, valid, 32, 96, 6, False)
+        b = hash_sampler(0, fc.to(dev))(valid.to(dev), valid.to(dev), 32, 96,
+                                        6, False)
+        if not all(torch.equal(x, y.cpu()) for x, y in zip(a, b)):
+            raise AssertionError(f"minimal sets of frame {f}: CPU != card")
+
+    # the eager per-frame path; the step after the first frame (which
+    # builds the per-device constants) runs under sync debug mode "error"
+    step = make_track_step(cfg, intr, use_mask=False, seed=0)
+    state, ref = init_state(cfg, dev), []
+    for i in range(FRAMES):
+        rgb = torch.from_numpy(seq.rgb[i]).pin_memory().to(dev,
+                                                           non_blocking=True)
+        dep = torch.from_numpy(seq.depth[i].astype(np.int32)).pin_memory().to(
+            dev, non_blocking=True)
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, out = step(state, rgb, dep)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ref.append(output_to_host(out))
+
+    # three runs, each in a fresh stream that captures its own graph:
+    # the spread of the steady pace; peak memory is the first run's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    full = FRAMES // CHUNK
+    describe_ops.reset_launches()
+    replays, paces, run_ms, peak_gb = 0, [], [], None
+    for _ in range(3):
+        cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK)
+        t0 = time.perf_counter()
+        got, ends, host_ms, _ = _stream(cs, seq, range(FRAMES),
+                                        sync_checked=True)
+        run_ms.append((time.perf_counter() - t0) * 1e3 / FRAMES)
+        replays += cs.replays
+        if peak_gb is None:
+            peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        worst = _same_results(got, ref, "chunked vs eager per-frame")
+        # steady: chunks 2 to 7 on the device's clock, from the end of
+        # the first (captured) chunk's work to the end of the last full
+        # chunk's
+        paces.append(ends[0].elapsed_time(ends[full - 1])
+                     / ((full - 1) * CHUNK))
+    eager_launches = describe_ops.launches
+    if cs.replays != full:
+        raise AssertionError(f"{cs.replays} graph replays for {full} chunks")
+    est = np.stack([pose_T(r["pose_q"], r["pose_t"]) for r in got])
+    ate = trajectory.ate_rmse(est[:, :3, 3], seq.poses[:, :3, 3])
+    if not ate < MAX_ATE_M:
+        raise AssertionError(f"chunked ATE {ate} m")
+    # device figures of one chunk, from replays after the runs
+    g_launch, nodes, kern_ms, n_desc, desc_ms, top = _replay_profile(
+        cs._graph)
+    if g_launch != 1 or n_desc != CHUNK:
+        raise AssertionError(f"one replay: {g_launch} graph launches, "
+                             f"{n_desc} describe kernels for {CHUNK} frames")
+    launches = eager_launches + replays * n_desc
+    replay_ms = eager_ms(cs._graph.replay, iters=3, warmup=1)
+    ms_frame = float(np.median(paces))
+    print(f"[chunk] {FRAMES} frames 640x480, chunk {CHUNK}, ba off: "
+          f"{full} graph replays + {FRAMES - full * CHUNK} eager tail frames,"
+          f" equal to the eager per-frame path (success, keyframes, inliers;"
+          f" poses within {worst:.1e}); minimal sets of frames 0-7 equal on "
+          f"CPU and card; 0 host syncs in the eager step after frame 0 and "
+          f"in every dispatch after the capture (sync debug mode 'error'); "
+          f"per chunk: {g_launch} graph launch, {nodes} kernel nodes, "
+          f"{kern_ms:.2f} ms kernel time (torch.profiler), replay "
+          f"{replay_ms:.2f} ms (CUDA events), host ms of the dispatch "
+          f"(capture excluded) median {np.median(host_ms[1:full]):.3f} "
+          f"(first, with warm-up and capture, {host_ms[0]:.1f}); describe "
+          f"in the graph {n_desc} launches, {desc_ms:.4f} ms; steady "
+          f"ms/frame of the three runs {[round(p, 3) for p in paces]} "
+          f"(chunks 2-{full}, CUDA events), median {ms_frame:.3f} ms/frame, "
+          f"{1e3 / ms_frame:.1f} frames/s; each whole run with capture and "
+          f"tail {[round(r, 2) for r in run_ms]} ms/frame; device busy "
+          f"{replay_ms / (ms_frame * CHUNK):.1%} of the median steady time "
+          f"(ms of a replay alone / steady ms per chunk); peak device memory "
+          f"above the sequence {peak_gb:.3f} GB (first run); describe "
+          f"launches {launches} = {eager_launches} eager (warm-up and tail) "
+          f"+ {replays} replays x {n_desc}; ATE {ate * 1e3:.2f} mm; "
+          f"kernels with the most device time per chunk (name, count, ms) "
+          f"{top}; {smi}", flush=True)
+    return got, launches
+
+
+def chunk_async_phase(dev, seq, smi):
+    """(11) ba_mode="async" through the chunked executor: solves on a
+    captured local-BA graph, merged chunk-late; and the graphed solve
+    against the eager one on one window."""
+    from kbslam_torch import config
+    from kbslam_torch.ba.local_ba import GraphedLocalBA, local_ba
+    from kbslam_torch.eval import trajectory
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.pipeline import init_state
+    from kbslam_torch.slam import pose_T, refine_frame_poses
+    from kbslam_torch.streaming import ChunkedStream
+
+    cfg = config.SLAMConfig()
+    intr = Intrinsics.from_matrix(seq.K)
+    cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK,
+                       ba_mode="async")
+    dispatch, ba_host_ms = cs._async.dispatch, []
+
+    def timed(live):  # host ms of the snapshot copy and the replay's enqueue
+        t = time.perf_counter()
+        dispatch(live)
+        ba_host_ms.append(round((time.perf_counter() - t) * 1e3, 3))
+
+    cs._async.dispatch = timed
+    got, _, _, ba_feeds = _stream(cs, seq, range(FRAMES))
+    del cs._async.dispatch
+    inserted = sum(r["added_kf"] for r in got)
+    gt = seq.poses[:, :3, 3]
+    est = [pose_T(r["pose_q"], r["pose_t"]) for r in got]
+    anchors = [(r["anchor_id"], pose_T(r["anchor_q"], r["anchor_t"]))
+               for r in got]
+    ate = trajectory.ate_rmse(np.stack(est)[:, :3, 3], gt)
+    ate_ref = trajectory.ate_rmse(
+        refine_frame_poses(est, anchors, cs.state.map)[:, :3, 3], gt)
+    bad = [r["frame"] for r in got[1:]
+           if not r["success"] or r["num_inliers"] < MIN_INLIERS]
+    if (bad or not cs.ba_stats or len(cs.ba_stats) != len(ba_host_ms)
+            or cs._async.inflight is not None
+            or not (ate < MAX_ATE_M and ate_ref <= ate + 1e-3)):
+        raise AssertionError(
+            f"chunked async: failed frames {bad}, {len(ba_host_ms)} solves "
+            f"dispatched, {len(cs.ba_stats)} merged, ATE {ate}, refined "
+            f"{ate_ref}")
+    for st in cs.ba_stats:
+        if not st["final_cost"] <= 1.001 * st["initial_cost"]:
+            raise AssertionError(f"a solve raised its cost: {st}")
+
+    # the graphed solve against the eager one, on the final map
+    m = cs.state.map
+    eager = [local_ba(m, intr, cfg.ba) for _ in range(2)]
+    g = GraphedLocalBA(cfg.ba, intr, m)
+    g.snapshot(m)
+    res, stats = g.solve()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        list(res) + list(stats), list(eager[0][0]) + list(eager[0][1])))
+    repeat = all(torch.equal(a, b) for a, b in zip(eager[0][0], eager[1][0]))
+    if not same:
+        raise AssertionError(f"graphed solve != eager (eager repeats bit "
+                             f"for bit: {repeat})")
+    solve_ms = eager_ms(g.solve, iters=3, warmup=1)
+    print(f"[chunk_async] {FRAMES} frames 640x480, chunk {CHUNK}, ba async: "
+          f"{inserted} insertions, {len(cs.ba_stats)} solves dispatched and "
+          f"merged (iterations {[s['iterations'] for s in cs.ba_stats]}), "
+          f"ATE {ate * 1e3:.2f} mm, refined {ate_ref * 1e3:.2f} mm; host ms "
+          f"of each solve's dispatch (snapshot copy + graph replay enqueue; "
+          f"the first captures the graph) {ba_host_ms}; (frame, host ms) of "
+          f"the feeds that dispatched one (they also wait for the previous "
+          f"chunk's outputs) {ba_feeds}; graphed solve bit-equal to "
+          f"the eager one on the final map (eager repeats bit for bit: "
+          f"{repeat}), replay {solve_ms:.2f} ms (CUDA events); {smi}",
+          flush=True)
+
+
+def checkpoint_phase(dev, seq, ref, smi):
+    """(12) Save the chunked stream's state at frame 32 and resume it in
+    a fresh stream: frames 32-59 equal the uninterrupted run ``ref``."""
+    import tempfile
+
+    from kbslam_torch import config
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from kbslam_torch.pipeline import init_state
+    from kbslam_torch.streaming import ChunkedStream
+
+    cfg = config.SLAMConfig()
+    intr = Intrinsics.from_matrix(seq.K)
+    cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK)
+    first, _, _, _ = _stream(cs, seq, range(32))
+    _same_results(first, ref[:32], "the first 32 frames")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_checkpoint(path, cs.state)
+        state, _ = load_checkpoint(path, cfg, dev)
+    if int(state.frame_count) != 32:
+        raise AssertionError(f"resumed at frame {int(state.frame_count)}")
+    resumed = ChunkedStream(cfg, intr, state, chunk=CHUNK)
+    rest, _, _, _ = _stream(resumed, seq, range(32, FRAMES))
+    worst = _same_results(rest, ref[32:], "resumed vs uninterrupted")
+    print(f"[checkpoint] saved at frame 32, resumed in a fresh stream: "
+          f"frames 32-{FRAMES - 1} equal to the uninterrupted run (poses "
+          f"within {worst:.1e}); {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -451,6 +781,7 @@ def main() -> int:
     from kbslam_torch.ops import _build
     from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.ops import patches as patch_ops
+    from kbslam_torch.profile_step import sync_sites
     from kbslam_torch.slam import SLAM
 
     # 1. device
@@ -595,6 +926,13 @@ def main() -> int:
           f"{FRAMES / total:.2f} FPS over all frames, median "
           f"{np.median(steady):.2f} ms/frame after the first "
           f"(first {walls[0] * 1e3:.1f} ms); {smi}", flush=True)
+    # one more frame (the last again) with every host sync counted: the
+    # upload goes through pinned buffers, so only the output copy waits
+    sites = sync_sites(lambda: slam.process(seq.rgb[-1], seq.depth[-1]))
+    if sum(sites.values()) != 1:
+        raise AssertionError(f"host syncs in one SLAM.process: {sites}")
+    print(f"[slice] host syncs in one SLAM.process: 1 ({dict(sites)}, the "
+          f"output copy)", flush=True)
 
     # 6. one local BA at full width, on the card and on the CPU
     slice_launches = dict(launches)
@@ -629,6 +967,13 @@ def main() -> int:
 
     # 9. the hard NK=3 scene of tests/test_ba_in_loop.py
     nk3_phase(dev, smi)
+
+    # 10-12. the chunked streaming executor: one CUDA graph per chunk,
+    # chunk-late async BA on a graphed solve, checkpoint and resume
+    chunked, chunk_launches = chunk_phase(dev, seq, smi)
+    launches["describe_keypoints"] += chunk_launches
+    chunk_async_phase(dev, seq, smi)
+    checkpoint_phase(dev, seq, chunked, smi)
 
     ref_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "kbslam") + os.sep

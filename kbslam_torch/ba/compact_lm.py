@@ -5,10 +5,12 @@ Port of kbslam/ba/compact_lm.py: the same residuals and robust weights
 ``cfg.depth_residuals``), the same gauge (the newest window camera is
 held), the depth-prior anchor, and the same damped accept/reject loop
 with the normal equations kept from the last accepted state. Sums by
-camera, by landmark and by (landmark, camera) are ``index_add_`` of the
-per-observation terms (``ops.incidence.incidence_apply``); on CUDA those
-add in atomic order, so results agree with the reference to float32
-rounding, not bit for bit.
+camera, by landmark and by (landmark, camera) are segment sums of the
+per-observation terms over plans made once per solve
+(``ops.incidence.SumById``: the ids do not change across LM trips). They
+add in a fixed order, so a solve repeats bit for bit and a replayed CUDA
+graph of it equals the eager solve; results agree with the reference to
+float32 rounding, not bit for bit.
 
 Two changes make the solve run without reading the device from the host:
 
@@ -32,7 +34,7 @@ from kbslam_torch.ba.compact import CompactProblem
 from kbslam_torch.ba.problem import BAProblem
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.geom.se3 import SE3, cross_matrix, quat_conj, quat_to_matrix
-from kbslam_torch.ops.incidence import incidence_apply, incidence_gather
+from kbslam_torch.ops.incidence import SumById, incidence_gather
 
 _EPS_Z = 1e-8
 
@@ -149,8 +151,12 @@ def solve_window_compact(prob: BAProblem, cp: CompactProblem,
     oh_c = (widx == prob.anchor_cam).to(torch.float32)
     oh_l = (torch.arange(L, device=dev) == cp.anchor_l).to(torch.float32)
 
-    # combined (landmark, camera) target ids of the U blocks
-    lw_ids = torch.where(cp.obs_valid, cp.obs_l * W + cp.obs_w, L * W)
+    # the three sums by id, planned once: by camera, by landmark and by
+    # (landmark, camera), the U blocks
+    sum_c = SumById(cp.obs_w, W)
+    sum_l = SumById(cp.obs_l, L)
+    sum_lw = SumById(torch.where(cp.obs_valid, cp.obs_l * W + cp.obs_w,
+                                 L * W), L * W)
 
     def normal_equations(cam_q, cam_t, Xc):
         r, z, pc, X_o, Rcw_o, w, cost = _obs_terms(cam_q, cam_t, Xc, cp,
@@ -175,22 +181,20 @@ def solve_window_compact(prob: BAProblem, cp: CompactProblem,
         # camera side: W targets; w is per row
         Hcc_o = torch.einsum("ori,or,orj->oij", J_cam, w, J_cam).reshape(O, 36)
         bc_o = -torch.einsum("ori,or,or->oi", J_cam, w, r)
-        cam_acc = incidence_apply(cp.obs_w, W, torch.cat([Hcc_o, bc_o], 1),
-                                  exact=True)
+        cam_acc = sum_c(torch.cat([Hcc_o, bc_o], 1), exact=True)
         H_cc = cam_acc[:, :36].reshape(W, 6, 6)
         b_c = cam_acc[:, 36:]
 
         # landmark side: [L, 9 + 3]
         Hp_o = torch.einsum("ori,or,orj->oij", J_pt, w, J_pt).reshape(O, 9)
         bp_o = -torch.einsum("ori,or,or->oi", J_pt, w, r)
-        lm_acc = incidence_apply(cp.obs_l, L, torch.cat([Hp_o, bp_o], 1),
-                                 exact=True)
+        lm_acc = sum_l(torch.cat([Hp_o, bp_o], 1), exact=True)
         H_pp = lm_acc[:, :9].reshape(L, 3, 3)
         b_p = lm_acc[:, 9:]
 
         # camera-landmark coupling: [L*W, 18] -> [L, W, 6, 3]
         U_o = torch.einsum("ori,or,orj->oij", J_cam, w, J_pt).reshape(O, 18)
-        U = incidence_apply(lw_ids, L * W, U_o, exact=True).reshape(L, W, 6, 3)
+        U = sum_lw(U_o, exact=True).reshape(L, W, 6, 3)
 
         # depth prior on the anchor
         has, Xa, R_cw0, r_d, sqrt_w = _anchor_terms(cam_q, cam_t, Xc, cp,

@@ -12,13 +12,15 @@ share below 0.4; pruning clears the window keyframes' references only.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from kbslam_torch.ba.compact import compact_problem
 from kbslam_torch.ba.compact_lm import solve_window_compact
+from kbslam_torch.ba.merge import merge_ba_result
 from kbslam_torch.ba.problem import build_problem
+from kbslam_torch.device import graph_capture
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.mapping.state import MapState, device_copy, scatter_rows
 
@@ -29,6 +31,18 @@ class BAStats(NamedTuple):
     iterations: torch.Tensor
     accepted: torch.Tensor     # LM steps that decreased the cost
     num_pruned: torch.Tensor
+
+
+def stats_vector(stats: BAStats) -> torch.Tensor:
+    """The five stats as one float64 vector (one copy to the host)."""
+    return torch.stack([x.to(torch.float64) for x in stats])
+
+
+def stats_record(v, wall_ms=None) -> dict:
+    """The host record of one solve from its ``stats_vector``."""
+    return dict(initial_cost=float(v[0]), final_cost=float(v[1]),
+                iterations=int(v[2]), accepted=int(v[3]),
+                num_pruned=int(v[4]), wall_ms=wall_ms)
 
 
 def local_ba(state: MapState, intr: Intrinsics,
@@ -81,12 +95,117 @@ def make_local_ba(cfg, intr: Intrinsics):
     return lambda m: local_ba(m, intr, cfg)
 
 
-def make_async_ba(cfg, intr: Intrinsics):
-    """``live map -> (snapshot, new map, BAStats)``: the solve runs on a
-    real copy of the map, which the tracking step's in-place writes
-    cannot reach."""
-    def f(m):
-        snap = device_copy(m)
-        result, stats = local_ba(snap, intr, cfg)
-        return snap, result, stats
-    return f
+class GraphedLocalBA:
+    """``local_ba`` captured as one CUDA graph for one map shape.
+
+    The solve makes no host sync, so it captures as it is. ``snapshot``
+    copies a live map into the graph's static input on the current
+    stream; ``solve`` replays the graph on the current stream (the
+    caller may make that a side stream that waits for the copy). The
+    result map and the stats live in the graph's memory and stay valid
+    until the next replay, so read or copy them first. A capture that
+    fails raises; nothing falls back to the eager solve."""
+
+    def __init__(self, cfg, intr: Intrinsics, like: MapState):
+        if not like.kf_q.is_cuda:
+            raise ValueError("GraphedLocalBA needs a map on a CUDA device")
+        dev = like.kf_q.device
+        self.input = device_copy(like)
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):   # warm-up: library handles, caches
+            local_ba(self.input, intr, cfg)
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with graph_capture(self.graph):
+            self.result, self.stats = local_ba(self.input, intr, cfg)
+            self.stats_vector = stats_vector(self.stats)
+
+    def snapshot(self, live: MapState) -> MapState:
+        for dst, src in zip(self.input, live):
+            dst.copy_(src)
+        return self.input
+
+    def solve(self) -> Tuple[MapState, BAStats]:
+        self.graph.replay()
+        return self.result, self.stats
+
+
+class InFlightSolve(NamedTuple):
+    """An asynchronous solve: its snapshot and result, its stats in host
+    memory, and the event recorded after it on the side stream (None on
+    the CPU). The stats are valid once the event has completed."""
+    snapshot: MapState
+    result: MapState
+    stats_host: torch.Tensor
+    event: Optional[torch.cuda.Event]
+
+
+class AsyncLocalBA:
+    """At most one local-BA solve in flight beside tracking, for
+    ``slam.SLAM`` and ``streaming.ChunkedStream`` alike.
+
+    - On CUDA, ``dispatch`` copies the live map into the static input of
+      a ``GraphedLocalBA`` (captured at the first dispatch) on the
+      current stream; a side stream waits for that copy, replays the
+      graph, copies the stats to pinned host memory and records an
+      event. The graph's input, result and stats stay as they are until
+      the next dispatch, which comes after the merge, and the graph owns
+      their memory, so no tensor crosses the streams without an order.
+    - On the CPU (only when the map lies there) the solve runs at
+      dispatch, on a copy of the map.
+
+    ``ready`` polls the event and never blocks. ``merge`` makes the
+    current stream wait for the solve, merges its result into the live
+    map it is given (``ba.merge``), waits on the host for the stats and
+    returns the new map and the solve's record."""
+
+    def __init__(self, cfg, intr: Intrinsics):
+        self._cfg, self._intr = cfg, intr
+        self._graph: Optional[GraphedLocalBA] = None
+        self._stream = None
+        self._stats_host = None
+        self.inflight: Optional[InFlightSolve] = None
+
+    def dispatch(self, live: MapState) -> None:
+        if self.inflight is not None:
+            raise RuntimeError("a local-BA solve is already in flight")
+        if not live.kf_q.is_cuda:
+            snap = device_copy(live)
+            result, stats = local_ba(snap, self._intr, self._cfg)
+            self.inflight = InFlightSolve(snap, result, stats_vector(stats),
+                                          None)
+            return
+        dev = live.kf_q.device
+        if self._graph is None:
+            self._graph = GraphedLocalBA(self._cfg, self._intr, live)
+            self._stream = torch.cuda.Stream(dev)
+            self._stats_host = torch.empty(len(BAStats._fields),
+                                           dtype=torch.float64,
+                                           pin_memory=True)
+        g, side = self._graph, self._stream
+        snap = g.snapshot(live)                    # on the current stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            result, _ = g.solve()
+            self._stats_host.copy_(g.stats_vector, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(side)
+        self.inflight = InFlightSolve(snap, result, self._stats_host, event)
+
+    def ready(self) -> bool:
+        f = self.inflight
+        return f is not None and (f.event is None or f.event.query())
+
+    def merge(self, live: MapState) -> Tuple[MapState, dict]:
+        """The solve in flight merged into ``live`` (it waits for the
+        solve if it has not finished), and its stats record."""
+        f = self.inflight
+        if f.event is not None:
+            torch.cuda.current_stream(live.kf_q.device).wait_event(f.event)
+        merged = merge_ba_result(live, f.snapshot, f.result, self._cfg)
+        if f.event is not None:
+            f.event.synchronize()
+        self.inflight = None
+        return merged, stats_record(f.stats_host.numpy())

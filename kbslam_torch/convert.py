@@ -41,7 +41,8 @@ def to_torch(state, device) -> TrackState:
         pose_t=torch.tensor(np.asarray(state.pose_t, np.float32), device=device),
         frames_since_kf=torch.tensor(
             np.asarray(state.frames_since_kf, np.int32), device=device),
-        frame_count=int(state.frame_count),
+        frame_count=torch.tensor(np.asarray(state.frame_count, np.int32),
+                                 device=device),
     )
 
 
@@ -51,5 +52,5 @@ def to_numpy(state: TrackState) -> TrackState:
         pose_q=state.pose_q.detach().cpu().numpy().copy(),
         pose_t=state.pose_t.detach().cpu().numpy().copy(),
         frames_since_kf=state.frames_since_kf.detach().cpu().numpy().copy(),
-        frame_count=np.int32(state.frame_count),
+        frame_count=state.frame_count.detach().cpu().numpy().copy(),
     )

@@ -1,4 +1,4 @@
-"""Device selection and float32 matmul precision.
+"""Device selection, float32 matmul precision and CUDA graph capture.
 
 The port runs on the card: without a device name, ``pick_device``
 returns the current CUDA device and raises when there is none. The CPU
@@ -11,6 +11,8 @@ torch counterpart is to keep TF32 off for matmuls and for cuDNN.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Optional, Union
 
 import torch
@@ -31,3 +33,22 @@ def pick_device(name: Optional[Union[str, torch.device]] = None
     if name is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def graph_capture(graph: "torch.cuda.CUDAGraph"):
+    """``torch.cuda.graph(graph)`` with Python's garbage collector run
+    before the capture and switched off during it. A dead reference cycle
+    that holds another CUDA graph would otherwise be collected at some
+    allocation inside the capture; freeing that graph there is an
+    operation a capturing stream does not permit, and the capture fails.
+    """
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if was_enabled:
+            gc.enable()

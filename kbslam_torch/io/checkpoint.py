@@ -1,0 +1,75 @@
+"""Checkpoint and resume of the tracking state.
+
+Port of kbslam/io/checkpoint.py, with its npz layout, names and dtypes,
+so that either package loads the other's checkpoints: ``map.<field>``
+for every MapState field, ``track.{pose_q,pose_t,frames_since_kf,
+frame_count}``, an optional ``trajectory`` [N, 4, 4] and ``meta.<key>``
+float64 scalars. The file is written beside its path and published with
+``os.replace`` (atomic). Loading checks every map field's shape against
+the configuration and widens the integer fields as ``convert`` does.
+
+The dense model (``tsdf``, ``atlas``) belongs to a later slice of the
+port (ROADMAP.md) and raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from kbslam_torch import convert
+from kbslam_torch.mapping.state import MapState
+from kbslam_torch.pipeline import TrackState, init_state
+
+_FIELDS_TRACK = ["pose_q", "pose_t", "frames_since_kf", "frame_count"]
+
+
+def save_checkpoint(path: str, state: TrackState,
+                    trajectory: Optional[List[np.ndarray]] = None,
+                    tsdf=None, atlas=None, kf_insertions: int = 0,
+                    meta: Optional[dict] = None) -> None:
+    """``meta``: a flat dict of scalar run metadata, stored as meta.*
+    entries and read back by ``load_checkpoint_meta``."""
+    if tsdf is not None or atlas is not None:
+        raise NotImplementedError(
+            "dense-model checkpoints are not ported yet (ROADMAP.md)")
+    host = convert.to_numpy(state)
+    arrs = {f"map.{name}": val for name, val in host.map._asdict().items()}
+    for name in _FIELDS_TRACK:
+        arrs[f"track.{name}"] = np.asarray(getattr(host, name))
+    if trajectory is not None and len(trajectory):
+        arrs["trajectory"] = np.stack(trajectory)
+    for k, v in (meta or {}).items():
+        arrs[f"meta.{k}"] = np.float64(v)
+    tmp = path + ".tmp.npz"  # savez appends .npz unless present
+    np.savez_compressed(tmp, **arrs)
+    os.replace(tmp, path)  # atomic publish
+
+
+def load_checkpoint_meta(path: str) -> dict:
+    """Scalar run metadata written via save_checkpoint(meta=...); an
+    empty dict when the checkpoint carries none."""
+    with np.load(path) as z:
+        return {k[len("meta."):]: float(z[k]) for k in z.files
+                if k.startswith("meta.")}
+
+
+def load_checkpoint(path: str, cfg, device
+                    ) -> Tuple[TrackState, Optional[np.ndarray]]:
+    """(state on ``device``, trajectory or None). Shapes must match cfg."""
+    expected = init_state(cfg, "meta").map
+    with np.load(path) as z:
+        fields = {}
+        for name in MapState._fields:
+            arr = z[f"map.{name}"]
+            want = tuple(getattr(expected, name).shape)
+            if arr.shape != want:
+                raise ValueError(f"checkpoint field map.{name} has shape "
+                                 f"{arr.shape}, config expects {want}")
+            fields[name] = arr
+        track = {n: z[f"track.{n}"] for n in _FIELDS_TRACK}
+        traj = z["trajectory"] if "trajectory" in z.files else None
+    state = convert.to_torch(TrackState(map=MapState(**fields), **track),
+                             device)
+    return state, traj

@@ -186,7 +186,7 @@ def create_map_points(state: MapState, match, intr_fx, intr_fy, intr_cx,
     # contiguous monotone ids; storage wraps at id % P
     offset = torch.cumsum(needs_new.to(torch.int32), dim=0) - 1
     new_id = (state.num_mp + offset).to(torch.int32)
-    n_new = torch.sum(needs_new.to(torch.int32))
+    n_new = torch.sum(needs_new, dtype=torch.int32)   # num_mp stays int32
 
     # world position from the previous keyframe's depth (Map.cpp:29-44)
     xy = take_row(state.kf_kp_xy, prev_slot)

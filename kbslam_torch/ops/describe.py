@@ -20,7 +20,8 @@ clamped patch origin ``(level[n], y0[n], x0[n])`` it returns
   package.
 
 ``launches`` counts the kernel launches made through
-``describe_keypoints``.
+``describe_keypoints``; a call made while a CUDA graph is captured
+launches nothing and is not counted (a replay runs no Python).
 """
 from __future__ import annotations
 
@@ -115,5 +116,6 @@ def describe_keypoints(stacked: torch.Tensor, level: torch.Tensor,
     if err != 0:
         msg = lib.kbslam_cuda_error_string(err).decode()
         raise RuntimeError(f"describe_keypoints kernel launch failed: {msg}")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1
     return angle, bits

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,7 +28,7 @@ from kbslam_torch.mapping.state import (MapState, create_map_points,
                                         empty_map, insert_keyframe, take_row)
 from kbslam_torch.matching.hamming import MatchResult, knn2_ratio_match
 from kbslam_torch.ops.incidence import incidence_gather
-from kbslam_torch.pnp.ransac import Sampler, generator_sampler, ransac_pnp
+from kbslam_torch.pnp.ransac import Sampler, hash_sampler, ransac_pnp
 
 _LATER = "is not ported yet (ROADMAP.md, Slice A, left for later)"
 
@@ -39,9 +38,9 @@ class TrackState(NamedTuple):
     pose_q: torch.Tensor            # current camera pose T_wc
     pose_t: torch.Tensor
     frames_since_kf: torch.Tensor   # [] int32
-    # a host int: it seeds the frame's RANSAC generator, so keeping it on
-    # the host saves a device read per frame
-    frame_count: int
+    # [] int32 on the device, as in the reference: the frame's RANSAC
+    # draws hash it, so a replayed CUDA graph draws each frame's own sets
+    frame_count: torch.Tensor
 
     @property
     def pose(self) -> SE3:
@@ -69,15 +68,8 @@ def init_state(cfg, device) -> TrackState:
         pose_q=torch.tensor([1.0, 0, 0, 0], device=device),
         pose_t=torch.zeros(3, device=device),
         frames_since_kf=torch.zeros((), dtype=torch.int32, device=device),
-        frame_count=0,
+        frame_count=torch.zeros((), dtype=torch.int32, device=device),
     )
-
-
-def frame_generator(seed: int, frame_count: int,
-                    device: torch.device) -> torch.Generator:
-    """The RANSAC generator of one frame, seeded from (seed, frame)."""
-    s = int(np.random.SeedSequence([seed, frame_count]).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(s)
 
 
 def _pool3x3(x: torch.Tensor, sign: float) -> torch.Tensor:
@@ -231,15 +223,16 @@ def make_track_step(cfg, intr: Intrinsics, use_mask: bool = True,
                     seed: int = 0, sampler_for_frame=None):
     """``step(state, rgb, depth, mask=None) -> (state, TrackOutput)``.
 
-    Each frame's minimal sets come from ``frame_generator(seed,
-    frame_count)``; ``sampler_for_frame(frame_count)`` replaces that
-    sampler (tests inject the reference's index sets this way)."""
+    Each frame's minimal sets come from ``hash_sampler(seed,
+    state.frame_count)``, on the device and without a host read;
+    ``sampler_for_frame(frame_count)`` replaces that sampler with the
+    frame number read on the host (tests inject the reference's index
+    sets this way)."""
     def step(state, rgb, depth, mask=None):
         if sampler_for_frame is not None:
-            sampler = sampler_for_frame(state.frame_count)
+            sampler = sampler_for_frame(int(state.frame_count))
         else:
-            sampler = generator_sampler(
-                frame_generator(seed, state.frame_count, rgb.device))
+            sampler = hash_sampler(seed, state.frame_count)
         return track_step(state, rgb, depth, mask if use_mask else None,
                           intr, cfg, sampler)
     return step

@@ -1,9 +1,13 @@
 """Batched PnP-RANSAC: every hypothesis solved and scored at once.
 
 Port of kbslam/pnp/ransac.py. Minimal sets come from a *sampler*; the
-default draws them with a ``torch.Generator`` (the reference's threefry
-keys are not reproduced). Tests pass a sampler that returns the index
-sets JAX draws, so both versions solve the same hypotheses.
+default, ``hash_sampler``, draws them from a counter-based integer hash
+of ``(seed, frame_count, lane)`` in plain tensor ops (the reference's
+threefry keys are not reproduced). The frame counter is a device
+tensor, so a CUDA graph that replays the step draws each frame's own
+sets, and the integer arithmetic gives the same indices on the CPU and
+on the card. Tests pass a sampler that returns the index sets JAX draws,
+so both versions solve the same hypotheses.
 
 A sampler is called as ``sampler(valid, pool, k_dlt, k_kabsch,
 set_size, packed)`` and returns ``(idx_dlt [k_dlt, set_size],
@@ -35,33 +39,65 @@ class PnPResult(NamedTuple):
     num_inliers: torch.Tensor   # [] int
 
 
-def draw_valid_indices(generator: torch.Generator, valid: torch.Tensor,
-                       num_sets: int, set_size: int,
-                       packed: bool = False) -> torch.Tensor:
-    """[num_sets, set_size] int64 indices uniform among the valid entries.
+_MASK32 = 0xFFFFFFFF
+UNIFORM_BITS = 24
 
-    The rank is floor(u * n_valid) with u ~ U[0, 1): ``torch.randint``
-    would need n_valid on the host, a sync every frame. packed=True
-    means the valid entries come first, so a rank is an index; otherwise
-    the rank maps to the (rank+1)-th valid entry by the prefix count."""
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply rounds) of int64 values
+    in [0, 2^32). The multipliers are odd and below 2^31, so every
+    product stays below 2^63: no int64 overflow on any device."""
+    for mul in (0x7FEB352D, 0x5BD1E995, 0x27D4EB2F):
+        x = x ^ (x >> 16)
+        x = (x * mul) & _MASK32
+    return x ^ (x >> 15)
+
+
+def hash_bits(seed: int, frame_count: torch.Tensor,
+              lanes: torch.Tensor) -> torch.Tensor:
+    """UNIFORM_BITS uniform bits per lane (int64): a function of (seed,
+    frame_count, lane) alone, equal on every device."""
+    # the offsets keep a zero seed, frame or lane from hashing to zero
+    seed_key = _mix32(torch.full_like(lanes, (seed + 0x9E3779B9) & _MASK32))
+    key = _mix32(seed_key
+                 ^ ((frame_count.to(torch.int64) + 0x632BE5AB) & _MASK32))
+    lane = (lanes + 0x85157AF5) & _MASK32
+    return _mix32(key ^ lane) >> (32 - UNIFORM_BITS)
+
+
+def draw_valid_indices(bits: torch.Tensor, valid: torch.Tensor,
+                       packed: bool = False) -> torch.Tensor:
+    """Indices uniform among the valid entries, one per lane of ``bits``
+    (int64, UNIFORM_BITS uniform bits each).
+
+    The rank is floor(u * n_valid) with u = bits / 2^UNIFORM_BITS, taken
+    in integer arithmetic, so it is exact and equal on every device;
+    ``torch.randint`` would need n_valid on the host, a sync every
+    frame. packed=True means the valid entries come first, so a rank is
+    an index; otherwise the rank maps to the (rank+1)-th valid entry by
+    the prefix count."""
     n_valid = torch.clamp(torch.sum(valid.to(torch.int64)), min=1)
-    u = torch.rand((num_sets, set_size), generator=generator,
-                   device=valid.device)
-    rank = torch.minimum(torch.floor(u * n_valid).to(torch.int64), n_valid - 1)
+    rank = torch.minimum((bits * n_valid) >> UNIFORM_BITS, n_valid - 1)
     if packed:
         return rank
     cnt = torch.cumsum(valid.to(torch.int64), dim=0)
     eq = (cnt[None, :] == (rank.reshape(-1, 1) + 1)) & valid[None, :]
-    return torch.argmax(eq.to(torch.uint8), dim=1).reshape(num_sets, set_size)
+    return torch.argmax(eq.to(torch.uint8), dim=1).reshape(rank.shape)
 
 
-def generator_sampler(generator: torch.Generator) -> Sampler:
-    """The default sampler: DLT sets first, then Kabsch sets, from one
-    generator."""
+def hash_sampler(seed: int, frame_count: torch.Tensor) -> Sampler:
+    """The default sampler of the frame ``frame_count`` (a 0-d int32
+    device tensor): DLT sets on lanes [0, k_dlt * S), Kabsch sets on the
+    lanes after them."""
     def sample(valid, pool, k_dlt, k_kabsch, set_size, packed):
-        idx_d = draw_valid_indices(generator, valid, k_dlt, set_size, packed)
-        idx_k = (None if pool is None else
-                 draw_valid_indices(generator, pool, k_kabsch, set_size))
+        n_d, n_k = k_dlt * set_size, k_kabsch * set_size
+        lanes = torch.arange(n_d + n_k, dtype=torch.int64,
+                             device=valid.device)
+        bits = hash_bits(seed, frame_count, lanes)
+        idx_d = draw_valid_indices(bits[:n_d].reshape(k_dlt, set_size),
+                                   valid, packed)
+        idx_k = (None if pool is None else draw_valid_indices(
+            bits[n_d:].reshape(k_kabsch, set_size), pool))
         return idx_d, idx_k
     return sample
 

@@ -72,7 +72,7 @@ def _stage_hooks(table):
     ]
 
 
-def _sync_sites(fn):
+def sync_sites(fn):
     """{file:line: count} of the operations in ``fn()`` that wait for
     the device (``torch.cuda.set_sync_debug_mode``)."""
     torch.cuda.synchronize()
@@ -158,7 +158,7 @@ def _ba_stage(slam, walls):
         torch.cuda.synchronize()
         ev.append(start.elapsed_time(end))
     _, kernel_ms, launches, top = _kernel_events(solve, 2)
-    syncs = _sync_sites(solve)
+    syncs = sync_sites(solve)
     kf = [w for w, d in zip(walls, slam.diagnostics) if d["ran_ba"]][1:]
     plain = [w for w, d in zip(walls, slam.diagnostics) if not d["ran_ba"]][2:]
     return {
@@ -238,7 +238,7 @@ def main(argv=None):
 
     prof_wall, dev_ms, n_launch, top = _kernel_events(next_frame, n_prof)
     # 4. host syncs in one steady frame
-    syncs = _sync_sites(lambda: slam.process(seq.rgb[-1], seq.depth[-1]))
+    syncs = sync_sites(lambda: slam.process(seq.rgb[-1], seq.depth[-1]))
 
     skip = 2   # first frames: build, caches, allocator warm-up
     stages = {name: float(np.sum(v) * 1e3 / len(staged))

@@ -9,15 +9,14 @@ Port of ``kbslam.slam.SLAM`` with its three BA modes:
   solve in flight);
 - ``"disabled"``: visual odometry with the keyframe map.
 
-On CUDA the asynchronous solve runs on a side stream. The snapshot is
-cloned on the current stream, before the next step writes the live map
-in place; the side stream waits for the clone, solves and records an
-event. ``process`` polls that event (``Event.query``, which never
-blocks) and merges on the current stream after ``wait_event``. Every
-tensor that crosses between the streams gets ``record_stream``, so the
-caching allocator does not hand its memory out while the other stream
-may still use it. On the CPU (only when the caller names it) the solve
-runs at dispatch and merges at the next poll.
+The asynchronous solve is ``ba.local_ba.AsyncLocalBA``: on CUDA the
+snapshot is copied into the static input of a captured local-BA graph
+on the current stream, before the next step writes the live map in
+place, and the graph replays on a side stream, followed by an event.
+``process`` polls that event (``Event.query``, which never blocks) and
+merges on the current stream after ``wait_event``. On the CPU (only
+when the caller names it) the solve runs at dispatch and merges at the
+next poll.
 
 Culling, loop closure, relocalization and dense mapping are later slices
 of the port (ROADMAP.md) and raise ``NotImplementedError``.
@@ -25,21 +24,23 @@ of the port (ROADMAP.md) and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from kbslam_torch.ba.local_ba import BAStats, make_async_ba, make_local_ba
-from kbslam_torch.ba.merge import merge_ba_result
+from kbslam_torch.ba.local_ba import (AsyncLocalBA, make_local_ba,
+                                      stats_record, stats_vector)
 from kbslam_torch.device import pick_device
 from kbslam_torch.geom.camera import Intrinsics
-from kbslam_torch.mapping.state import device_copy
 from kbslam_torch.pipeline import init_state, make_track_step
 
 _OUTPUT_FIELDS = ("pose_q", "pose_t", "success", "added_kf", "inlier_ratio",
                   "num_matches", "num_inliers", "num_features", "anchor_id",
                   "anchor_q", "anchor_t")
+_FIELD_WIDTH = {f: 4 if f.endswith("_q") else 3 if f.endswith("_t") else 1
+                for f in _OUTPUT_FIELDS}
+OUTPUT_WIDTH = sum(_FIELD_WIDTH.values())    # a row of output_rows
 
 
 def pose_T(q, t) -> np.ndarray:
@@ -57,17 +58,30 @@ def pose_T(q, t) -> np.ndarray:
     return T
 
 
-def output_to_host(out) -> dict:
-    """All TrackOutput fields in ONE device-to-host copy (float64 values;
-    the integers are small and exact)."""
-    flat = torch.cat([getattr(out, f).reshape(-1).to(torch.float64)
-                      for f in _OUTPUT_FIELDS]).cpu().numpy()
+def output_rows(out) -> torch.Tensor:
+    """TrackOutputs stacked over a leading frame axis [n, ...] -> one
+    [n, OUTPUT_WIDTH] float64 tensor on their device, a row per frame
+    (the integers are small and exact in float64)."""
+    n = out.pose_q.shape[0]
+    return torch.cat([getattr(out, f).reshape(n, -1).to(torch.float64)
+                      for f in _OUTPUT_FIELDS], dim=1)
+
+
+def row_to_fields(row: np.ndarray) -> dict:
+    """One row of ``output_rows``, read back on the host, as a dict of
+    the TrackOutput fields (vectors as arrays, scalars as floats)."""
     res, i = {}, 0
     for f in _OUTPUT_FIELDS:
-        n = getattr(out, f).numel()
-        res[f] = flat[i:i + n] if n > 1 else flat[i]
+        n = _FIELD_WIDTH[f]
+        res[f] = row[i:i + n] if n > 1 else row[i]
         i += n
     return res
+
+
+def output_to_host(out) -> dict:
+    """All TrackOutput fields of one frame in ONE device-to-host copy."""
+    stacked = type(out)(*(f[None] for f in out))
+    return row_to_fields(output_rows(stacked)[0].cpu().numpy())
 
 
 def refine_frame_poses(frame_poses, frame_anchors, map_state) -> np.ndarray:
@@ -103,21 +117,6 @@ def map_point_positions(m) -> np.ndarray:
     return m.mp_pos.cpu().numpy()[slots] if len(slots) else np.zeros((0, 3))
 
 
-def _stats_vector(stats: BAStats) -> torch.Tensor:
-    """The five BA stats as one float64 vector (one copy to the host)."""
-    return torch.stack([x.to(torch.float64) for x in stats])
-
-
-class _InFlight(NamedTuple):
-    """An asynchronous solve: its snapshot and result, its stats in host
-    memory, and the event recorded after it on the side stream (None on
-    the CPU). The stats are valid once the event has completed."""
-    snapshot: object
-    result: object
-    stats_host: torch.Tensor
-    event: Optional[torch.cuda.Event]
-
-
 class SLAM:
     """Stateful wrapper: feed RGB-D frames, read back trajectory and map."""
 
@@ -142,13 +141,11 @@ class SLAM:
         self._step = make_track_step(config, self.intr, use_mask=use_mask,
                                      seed=seed)
         self._ba = make_local_ba(config.ba, self.intr)
-        self._ba_async = make_async_ba(config.ba, self.intr)
-        self._ba_stream = (torch.cuda.Stream(self.device)
-                           if ba_mode == "async" and self.device.type == "cuda"
-                           else None)
-        self._ba_inflight: Optional[_InFlight] = None
+        self._async = (AsyncLocalBA(config.ba, self.intr)
+                       if ba_mode == "async" else None)
         self.state = init_state(config, self.device)
         self._ones_mask = None
+        self._pinned = None   # ([(shape, dtype)], pinned host buffers)
         self._frame = 0
         self.trajectory: List[np.ndarray] = []   # poses of successes
         self.frame_poses: List[np.ndarray] = []  # per input frame
@@ -156,21 +153,32 @@ class SLAM:
         self.diagnostics: List[dict] = []
         self.ba_stats: List[dict] = []
 
-    def _record_ba_stats(self, v: np.ndarray, wall_ms=None):
-        self.ba_stats.append(dict(
-            initial_cost=float(v[0]), final_cost=float(v[1]),
-            iterations=int(v[2]), accepted=int(v[3]), num_pruned=int(v[4]),
-            wall_ms=wall_ms))
-
     def _upload(self, rgb, depth, mask):
+        """The frame on the device. On CUDA it goes through pinned host
+        buffers with asynchronous copies, so the upload makes no host
+        sync; the buffers are reused on the next frame, after this
+        frame's output copy has waited for the stream."""
         dev = self.device
-        rgb_t = torch.as_tensor(np.asarray(rgb, np.uint8)).to(dev)
         # torch's uint16 support is thin: widen depth to int32 on upload
-        depth_t = torch.as_tensor(np.asarray(depth).astype(np.int32)).to(dev)
+        frame = [np.asarray(rgb, np.uint8), np.asarray(depth, np.int32)]
+        if self.use_mask and mask is not None:
+            frame.append(np.asarray(mask))
+        if dev.type == "cpu":
+            tensors = [torch.from_numpy(np.array(a)) for a in frame]
+        else:
+            key = [(a.shape, a.dtype) for a in frame]
+            if self._pinned is None or self._pinned[0] != key:
+                self._pinned = (key, [torch.from_numpy(np.empty(s, d))
+                                      .pin_memory() for s, d in key])
+            tensors = []
+            for a, buf in zip(frame, self._pinned[1]):
+                np.copyto(buf.numpy(), a)
+                tensors.append(buf.to(dev, non_blocking=True))
+        rgb_t, depth_t = tensors[:2]
         mask_t = None
         if self.use_mask:
             if mask is not None:
-                mask_t = torch.as_tensor(np.asarray(mask)).to(dev)
+                mask_t = tensors[2]
             else:
                 if (self._ones_mask is None
                         or tuple(self._ones_mask.shape) != rgb_t.shape[:2]):
@@ -192,15 +200,18 @@ class SLAM:
             tb = time.perf_counter()
             new_map, stats = self._ba(self.state.map)
             self.state = self.state._replace(map=new_map)
-            v = _stats_vector(stats).cpu().numpy()
-            self._record_ba_stats(v, wall_ms=(time.perf_counter() - tb) * 1e3)
+            v = stats_vector(stats).cpu().numpy()
+            self.ba_stats.append(stats_record(
+                v, wall_ms=(time.perf_counter() - tb) * 1e3))
             ran_ba = True
         elif self.ba_mode == "async":
             # merge a finished solve first; a new one is dispatched last,
             # on the map as this frame leaves it
-            ran_ba = self._async_ba_merge()
-            if added_kf and self._ba_inflight is None:
-                self._async_ba_dispatch()
+            ran_ba = self._async.ready()
+            if ran_ba:
+                self._merge_inflight()
+            if added_kf and self._async.inflight is None:
+                self._async.dispatch(self.state.map)
 
         T = pose_T(o["pose_q"], o["pose_t"])
         if bool(o["success"]) or self._frame == 0:
@@ -223,52 +234,14 @@ class SLAM:
         self._frame += 1
         return diag
 
-    def _async_ba_dispatch(self):
-        """Snapshot the live map and start a solve on it."""
-        side = self._ba_stream
-        if side is None:
-            snap, result, stats = self._ba_async(self.state.map)
-            self._ba_inflight = _InFlight(snap, result, _stats_vector(stats),
-                                          None)
-            return
-        snap = device_copy(self.state.map)       # on the current stream
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            result, stats = self._ba(snap)
-            stats_host = torch.empty(len(stats), dtype=torch.float64,
-                                     pin_memory=True)
-            stats_host.copy_(_stats_vector(stats), non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(side)
-        for t in snap:
-            t.record_stream(side)
-        self._ba_inflight = _InFlight(snap, result, stats_host, event)
-
     def _merge_inflight(self):
-        f = self._ba_inflight
-        if f.event is not None:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(f.event)
-            for t in f.result:
-                t.record_stream(cur)
-        self.state = self.state._replace(map=merge_ba_result(
-            self.state.map, f.snapshot, f.result, self.config.ba))
-        self._record_ba_stats(f.stats_host.numpy())
-        self._ba_inflight = None
-
-    def _async_ba_merge(self) -> bool:
-        """Merge the solve in flight if it has finished; never waits."""
-        f = self._ba_inflight
-        if f is None or (f.event is not None and not f.event.query()):
-            return False
-        self._merge_inflight()
-        return True
+        merged, record = self._async.merge(self.state.map)
+        self.state = self.state._replace(map=merged)
+        self.ba_stats.append(record)
 
     def finish(self):
         """Wait for the solve in flight, if any, and merge it."""
-        if self._ba_inflight is not None:
-            if self._ba_inflight.event is not None:
-                self._ba_inflight.event.synchronize()
+        if self._async is not None and self._async.inflight is not None:
             self._merge_inflight()
 
     def refined_trajectory(self) -> np.ndarray:

@@ -18,6 +18,23 @@ packages get the same inputs; bounds:
   another order than the reference's one-hot products, so where a
   converged solve's relative-decrease stop falls can move by a trip; the
   counts of trips are not compared.
+
+  Without depth rows and with pixel noise, 20 trips do not pin a
+  landmark's depth along its ray: it is triangulated from pixels alone,
+  over a 0.6 m baseline at 2-5 m, and the solve stops in a flat valley.
+  There the port stops after 6 trips and the reference after 7 (inner
+  iterations off) or 20 (on), at costs 3e-6 apart, and 3 of the 12,288
+  coordinates differ by up to 0.67 mm. This is not a difference of the LM
+  step: capped at 6 trips the two agree to 5e-6 m, and moving the input
+  landmarks by 1e-7 m moves the reference's own result by up to 0.37 mm
+  and the port's by up to 1.2 mm, with stops anywhere from trip 4 to 20.
+  So in these cases each valid landmark is held by what the problem
+  defines: its reprojection in every window camera that observes it
+  (each solution's own cameras) within 0.05 px, a tenth of the 0.5 px
+  pixel noise, and its depth along the ray within 1e-3 of the depth, a
+  fifth of the 1-sigma depth uncertainty that the noise leaves at the
+  nearest landmark (z sigma / (f b) = 2.0 * 0.5 / (300 * 0.6) = 5.6e-3).
+  Padding rows, poses and costs keep the bounds above.
 - ``local_ba`` end to end: ``kf_mp`` and ``num_pruned`` equal; poses,
   points and costs within the bounds of the solve.
 - A single keyframe is a no-op, equal bit for bit to the input and to the
@@ -48,6 +65,8 @@ from tests.test_ba import BCFG, INTR, build_synthetic_state
 torch.set_num_threads(1)
 TINTR = Intrinsics.create(INTR.fx, INTR.fy, INTR.cx, INTR.cy)
 POSE_M, POSE_DEG, POINT_M, COST_REL, COST_ABS = 1e-4, 0.005, 1e-4, 1e-3, 1e-6
+# landmarks triangulated from pixels alone (see the module docstring)
+REPROJ_PX, RAY_DEPTH_REL = 0.05, 1e-3
 
 
 def _cfgs(**kw):
@@ -110,6 +129,48 @@ def _assert_costs(t_cost, j_cost):
         t_cost, j_cost)
 
 
+def _quat_to_matrix(q):
+    """[..., 4] (w, x, y, z) unit quaternions -> [..., 3, 3] float64."""
+    q = np.asarray(q, np.float64)
+    w, x, y, z = np.moveaxis(q / np.linalg.norm(q, axis=-1, keepdims=True),
+                             -1, 0)
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], -2)
+
+
+def _in_view(sol, cp):
+    """Every active observation's landmark in its camera of ``sol``:
+    (pixel [n, 2], depth along the optical axis [n])."""
+    valid = np.asarray(cp.obs_valid)
+    w = np.asarray(cp.obs_w)[valid]
+    X = np.asarray(sol.Xc, np.float64)[np.asarray(cp.obs_l)[valid]]
+    R = _quat_to_matrix(np.asarray(sol.cam_q))[w]
+    pc = np.einsum("nji,nj->ni", R, X - np.asarray(sol.cam_t, np.float64)[w])
+    uv = np.stack([INTR.fx * pc[:, 0] / pc[:, 2] + INTR.cx,
+                   INTR.fy * pc[:, 1] / pc[:, 2] + INTR.cy], -1)
+    return uv, pc[:, 2]
+
+
+def _assert_landmarks_in_view(ts, js, jcp):
+    """The weakly posed cases' landmark measure (module docstring):
+    reprojection within REPROJ_PX, depth within RAY_DEPTH_REL of itself;
+    padding rows within POINT_M."""
+    uv_t, z_t = _in_view(ts, jcp)
+    uv_j, z_j = _in_view(js, jcp)
+    px = np.linalg.norm(uv_t - uv_j, axis=-1)
+    rel = np.abs(z_t - z_j) / z_j
+    assert px.max() < REPROJ_PX, px.max()
+    assert rel.max() < RAY_DEPTH_REL, rel.max()
+    pad = ~np.asarray(jcp.l_valid)
+    np.testing.assert_allclose(ts.Xc.numpy()[pad], np.asarray(js.Xc)[pad],
+                               rtol=0, atol=POINT_M)
+
+
 def _to_map(jstate):
     return convert.map_to_torch(jax.device_get(jstate), "cpu")
 
@@ -169,8 +230,11 @@ def test_solve_window_compact_matches(max_iterations, depth_rows, inner,
     np.testing.assert_allclose(ts.cam_t.numpy(), np.asarray(js.cam_t),
                                rtol=0, atol=POSE_M)
     assert _angle_deg(ts.cam_q.numpy(), js.cam_q).max() < POSE_DEG
-    np.testing.assert_allclose(ts.Xc.numpy(), np.asarray(js.Xc), rtol=0,
-                               atol=POINT_M)
+    if depth_rows or px_noise == 0 or max_iterations == 1:
+        np.testing.assert_allclose(ts.Xc.numpy(), np.asarray(js.Xc), rtol=0,
+                                   atol=POINT_M)
+    else:
+        _assert_landmarks_in_view(ts, js, jcp)
     _assert_costs(ts.initial_cost, js.initial_cost)
     _assert_costs(ts.final_cost, js.final_cost)
     assert float(ts.final_cost) <= float(ts.initial_cost)

@@ -1,9 +1,12 @@
 """The port's own copies of the reference's numpy-only modules equal the
 originals: ``kbslam_torch/config.py``, ``io/synthetic.py``,
-``eval/trajectory.py`` and ``frontend/brief_pattern_learned.npy``.
+``eval/trajectory.py``, ``io/tum.py``, ``io/native_loader.py`` and
+``frontend/brief_pattern_learned.npy``.
 
 This is the one place both are imported. The copies differ from the
-originals only in their module docstring, which names the file copied.
+originals only in their module docstring, which names the file copied,
+and in the package name of their imports (``kbslam_torch`` for
+``kbslam``).
 """
 import ast
 import dataclasses
@@ -22,7 +25,9 @@ from kbslam_torch.io import synthetic as tsynthetic
 REPO = Path(__file__).resolve().parent.parent
 COPIES = [("kbslam/config.py", "kbslam_torch/config.py"),
           ("kbslam/io/synthetic.py", "kbslam_torch/io/synthetic.py"),
-          ("kbslam/eval/trajectory.py", "kbslam_torch/eval/trajectory.py")]
+          ("kbslam/eval/trajectory.py", "kbslam_torch/eval/trajectory.py"),
+          ("kbslam/io/tum.py", "kbslam_torch/io/tum.py"),
+          ("kbslam/io/native_loader.py", "kbslam_torch/io/native_loader.py")]
 
 
 def _body(path: Path) -> str:
@@ -35,7 +40,8 @@ def _body(path: Path) -> str:
 
 @pytest.mark.parametrize("orig,copy", COPIES)
 def test_copy_source_equals_original_below_docstring(orig, copy):
-    assert _body(REPO / copy) == _body(REPO / orig)
+    assert _body(REPO / copy) == _body(REPO / orig).replace(
+        "from kbslam.", "from kbslam_torch.")
     assert orig in ast.get_docstring(ast.parse((REPO / copy).read_text()))
 
 

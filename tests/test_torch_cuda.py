@@ -21,7 +21,7 @@ from kbslam_torch.ba.local_ba import local_ba
 from kbslam_torch.eval import trajectory
 from kbslam_torch.mapping.state import MapState
 from kbslam_torch.pipeline import init_state, make_track_step
-from kbslam_torch.pnp.ransac import draw_valid_indices
+from kbslam_torch.pnp.ransac import hash_sampler
 from kbslam_torch.slam import SLAM, pose_T
 
 pytestmark = pytest.mark.cuda
@@ -127,15 +127,14 @@ def test_describe_kernel_rejects_bad_input(cuda_device):
 
 
 def _cpu_sampler(frame_count):
-    """Minimal sets drawn on the CPU from a fixed seed, then moved to the
-    tensors' device, so CPU and CUDA runs solve the same hypotheses."""
-    g = torch.Generator().manual_seed(1000 + frame_count)
+    """Minimal sets drawn on the CPU, then moved to the tensors' device,
+    so CPU and CUDA runs solve the same hypotheses."""
+    cpu = hash_sampler(1000, torch.tensor(frame_count, dtype=torch.int32))
 
     def sample(valid, pool, k_dlt, k_kabsch, set_size, packed):
         dev = valid.device
-        idx_d = draw_valid_indices(g, valid.cpu(), k_dlt, set_size, packed)
-        idx_k = (None if pool is None else
-                 draw_valid_indices(g, pool.cpu(), k_kabsch, set_size))
+        idx_d, idx_k = cpu(valid.cpu(), None if pool is None else pool.cpu(),
+                           k_dlt, k_kabsch, set_size, packed)
         return idx_d.to(dev), None if idx_k is None else idx_k.to(dev)
     return sample
 
@@ -217,18 +216,134 @@ def test_local_ba_cuda_matches_cpu_without_host_sync(cuda_device):
 
 
 def test_async_ba_on_a_side_stream(cuda_device):
-    """ba_mode="async" on the card: the solve runs on the side stream, is
-    merged after an event poll, and the run meets the gates of
-    tests/test_async_ba.py."""
+    """ba_mode="async" on the card: the solve replays a captured graph on
+    the side stream, is merged after an event poll, and the run meets the
+    gates of tests/test_async_ba.py."""
     seq = synthetic.render_sequence(num_frames=40, height=240, width=320)
     slam = SLAM(_cfg240(), seq.K, ba_mode="async", use_mask=False,
                 device=cuda_device)
-    assert slam._ba_stream is not None
     for i in range(40):
         slam.process(seq.rgb[i], seq.depth[i])
     slam.finish()
-    assert slam._ba_inflight is None and len(slam.ba_stats) >= 1
+    assert slam._async._graph is not None and slam._async._stream is not None
+    assert slam._async.inflight is None and len(slam.ba_stats) >= 1
     est = np.stack(slam.frame_poses)
     assert trajectory.ate_rmse(est[:, :3, 3], seq.poses[:, :3, 3]) < 0.05
     for st in slam.ba_stats:
         assert st["final_cost"] <= st["initial_cost"] * 1.001
+
+
+def test_chunk_graph_equals_the_eager_step(cuda_device):
+    """ChunkedStream on the card (chunk 8: two replays of the captured
+    graph, then 4 eager tail frames) against the eager per-frame step on
+    the card: the same decisions and inlier counts, poses within 1e-5,
+    and the same minimal sets on the CPU and the card."""
+    from kbslam_torch.slam import output_to_host
+    from kbslam_torch.streaming import ChunkedStream
+
+    seq = synthetic.render_sequence(num_frames=20, height=240, width=320)
+    cfg = _cfg240()
+    intr = Intrinsics.from_matrix(seq.K)
+    step = make_track_step(cfg, intr, use_mask=False)
+    state, ref = init_state(cfg, cuda_device), []
+    for i in range(20):
+        state, o = step(state, torch.from_numpy(seq.rgb[i]).to(cuda_device),
+                        torch.from_numpy(seq.depth[i].astype(np.int32)).to(
+                            cuda_device))
+        ref.append(output_to_host(o))
+    cs = ChunkedStream(cfg, intr, init_state(cfg, cuda_device), chunk=8)
+    got = []
+    for i in range(20):
+        got += cs.feed(seq.rgb[i], seq.depth[i])
+    got += cs.flush()
+    assert cs._graph is not None and len(got) == 20
+    for g, r in zip(got, ref):
+        assert (g["success"], g["added_kf"], g["num_inliers"]) == (
+            bool(r["success"]), bool(r["added_kf"]), int(r["num_inliers"]))
+        assert np.abs(g["pose_t"] - r["pose_t"]).max() <= 1e-5
+        assert np.abs(g["pose_q"] - r["pose_q"]).max() <= 1e-5
+    assert int(cs.state.frame_count) == 20
+    valid = (torch.arange(512) % 5) != 0
+    for f in range(4):
+        fc = torch.tensor(f, dtype=torch.int32)
+        a = hash_sampler(3, fc)(valid, valid, 16, 48, 6, False)
+        b = hash_sampler(3, fc.to(cuda_device))(
+            valid.to(cuda_device), valid.to(cuda_device), 16, 48, 6, False)
+        assert all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
+
+
+def test_graphed_solve_equals_the_eager_solve(cuda_device):
+    """local_ba captured as one CUDA graph (GraphedLocalBA) against the
+    eager solve on the same five-keyframe map: equal bit for bit (the
+    sums by id add in a fixed order, ``ops.incidence.SumById``)."""
+    from kbslam_torch.ba.local_ba import GraphedLocalBA
+
+    seq = synthetic.render_sequence(num_frames=60, height=240, width=320)
+    slam = SLAM(_cfg240(), seq.K, ba_mode="disabled", use_mask=False,
+                device=cuda_device)
+    for i in range(60):
+        slam.process(seq.rgb[i], seq.depth[i])
+        if slam.num_keyframes == 5:
+            break
+    m, intr, cfg = slam.state.map, slam.intr, slam.config.ba
+    eager, eager_stats = local_ba(m, intr, cfg)
+    g = GraphedLocalBA(cfg, intr, m)
+    g.snapshot(m)
+    res, stats = g.solve()
+    torch.cuda.synchronize()
+    for a, b in zip(list(res) + list(stats), list(eager) + list(eager_stats)):
+        assert torch.equal(a, b)
+
+
+def test_sum_by_id_on_the_card_equals_the_cpu(cuda_device):
+    """The plan and the segment sum make no host sync, and add in the same
+    order on the card as on the CPU, so the sums are equal bit for bit."""
+    from kbslam_torch.ops.incidence import SumById
+
+    rng = np.random.default_rng(8)
+    ids = torch.from_numpy(rng.integers(-2, 4100, 4096).astype(np.int32))
+    values = torch.from_numpy(rng.standard_normal((4096, 42))
+                              .astype(np.float32))
+    ref = SumById(ids, 4096)(values, exact=True)
+    ids_d, values_d = ids.to(cuda_device), values.to(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = SumById(ids_d, 4096)(values_d, exact=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_capture_survives_a_dead_graph_in_a_cycle(cuda_device):
+    """A captured graph held by a dead reference cycle, and the collector
+    set to run at almost every allocation: ``device.graph_capture`` still
+    captures (freeing a graph inside a capture would fail it), and the
+    replay computes what the eager ops do."""
+    import gc
+
+    from kbslam_torch.device import graph_capture
+
+    x = torch.arange(8.0, device=cuda_device)
+
+    def captured():
+        g = torch.cuda.CUDAGraph()
+        with graph_capture(g):
+            y = x
+            for _ in range(50):
+                y = y * 0.5 + 1.0
+        return g, y
+
+    cycle = {"graph": captured()}
+    cycle["self"] = cycle
+    del cycle
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        g, y = captured()
+    finally:
+        gc.set_threshold(*threshold)
+    g.replay()
+    ref = x
+    for _ in range(50):
+        ref = ref * 0.5 + 1.0
+    assert torch.equal(y, ref)

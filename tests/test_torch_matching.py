@@ -12,6 +12,7 @@ from kbslam.ops.incidence import (incidence_apply as j_apply,
                                   incidence_gather as j_gather)
 from kbslam_torch.matching.hamming import (hamming_distance_matrix as t_ham,
                                            knn2_ratio_match as t_knn)
+from kbslam_torch.ops.incidence import SumById
 from kbslam_torch.ops.incidence import (incidence_apply as t_apply,
                                         incidence_gather as t_gather)
 
@@ -88,3 +89,28 @@ def test_incidence_apply_matches(exact):
     got = t_apply(torch.from_numpy(ids), 40, torch.from_numpy(values),
                   exact).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["mixed", "runs", "all_dropped"])
+def test_sum_by_id_adds_in_row_order(case):
+    """One plan, two value sets: each sum equals, bit for bit, the float32
+    sum that adds the rows of an id in their order (``np.add.at``), with
+    ids < 0 or >= n dropped and ids without rows summing to zero."""
+    rng = np.random.default_rng(7)
+    n, rows = 40, 500
+    if case == "mixed":
+        ids = rng.integers(-3, n + 4, rows)
+    elif case == "runs":       # few ids, long runs, as the sums by camera
+        ids = rng.integers(0, 5, rows)
+    else:
+        ids = np.full(rows, n)
+    ids = ids.astype(np.int32)
+    plan = SumById(torch.from_numpy(ids), n)
+    kept = (ids >= 0) & (ids < n)
+    for k in range(2):
+        values = (rng.standard_normal((rows, 6)) * 10 ** k).astype(np.float32)
+        ref = np.zeros((n, 6), np.float32)
+        np.add.at(ref, ids[kept], values[kept])
+        got = plan(torch.from_numpy(values), exact=True).numpy()
+        assert got.dtype == np.float32 and got.shape == (n, 6)
+        np.testing.assert_array_equal(got, ref)

@@ -198,7 +198,9 @@ def test_port_imports_no_jax():
     code = ("import sys, os, kbslam_torch, kbslam_torch.pipeline, "
             "kbslam_torch.cli, kbslam_torch.slam, kbslam_torch.convert, "
             "kbslam_torch.profile_step, kbslam_torch.ops.describe, "
-            "kbslam_torch.ba.local_ba, kbslam_torch.ba.merge; "
+            "kbslam_torch.ba.local_ba, kbslam_torch.ba.merge, "
+            "kbslam_torch.streaming, kbslam_torch.io.checkpoint, "
+            "kbslam_torch.io.tum, kbslam_torch.io.native_loader; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'kbslam' "
             "or m.startswith(('jax.', 'kbslam.'))]; "
             "ref = os.path.join(os.getcwd(), 'kbslam') + os.sep; "

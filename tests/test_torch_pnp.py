@@ -143,17 +143,20 @@ def test_ransac_with_injected_sets(seed, with_depth):
 
 
 def test_generator_sampler_draws_valid_sets():
-    """The default sampler: in range, among valid entries, deterministic
-    per generator seed."""
+    """The default sampler (``hash_sampler``): in range, among valid
+    entries, deterministic per (seed, frame), another frame other sets."""
     valid = torch.zeros(500, dtype=torch.bool)
     valid[torch.randperm(500, generator=torch.Generator().manual_seed(0))[:77]] = True
-    g = torch.Generator().manual_seed(11)
-    idx = transac.draw_valid_indices(g, valid, 64, 6)
-    assert bool(valid[idx].all())
-    packed = transac.draw_valid_indices(torch.Generator().manual_seed(11),
-                                        torch.arange(500) < 77, 64, 6,
-                                        packed=True)
+    frame = torch.tensor(5, dtype=torch.int32)
+    idx, idx_k = transac.hash_sampler(11, frame)(valid, valid, 64, 16, 6,
+                                                 False)
+    assert idx.shape == (64, 6) and idx_k.shape == (16, 6)
+    assert bool(valid[idx].all()) and bool(valid[idx_k].all())
+    packed, _ = transac.hash_sampler(11, frame)(torch.arange(500) < 77, None,
+                                                64, 0, 6, True)
     assert int(packed.max()) < 77 and int(packed.min()) >= 0
-    again = transac.draw_valid_indices(torch.Generator().manual_seed(11),
-                                       valid, 64, 6)
+    again, _ = transac.hash_sampler(11, frame)(valid, valid, 64, 16, 6, False)
     assert torch.equal(idx, again)
+    other, _ = transac.hash_sampler(11, frame + 1)(valid, valid, 64, 16, 6,
+                                                   False)
+    assert not torch.equal(idx, other)

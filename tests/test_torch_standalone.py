@@ -24,16 +24,27 @@ from kbslam_torch.slam import SLAM
 REPO = Path(__file__).resolve().parent.parent
 
 
-def test_package_alone_runs_its_cli(tmp_path):
+@pytest.mark.parametrize("extra", [[], ["--chunk", "4", "--ba", "off"]])
+def test_package_alone_runs_its_cli(tmp_path, extra):
+    """Per frame, and through the chunked executor (``--chunk 4``), which
+    also imports streaming, io.checkpoint and io.tum's neighbours."""
     shutil.copytree(REPO / "kbslam_torch", tmp_path / "kbslam_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run(
         [sys.executable, "-m", "kbslam_torch.cli", "--device", "cpu",
-         "--frames", "4", "--width", "160", "--height", "120", "--eval"],
+         "--frames", "4", "--width", "160", "--height", "120", "--eval",
+         "--save-checkpoint", str(tmp_path / "state.npz"), *extra],
         capture_output=True, text=True, cwd=tmp_path, env=env, timeout=300)
     assert r.returncode == 0, r.stderr
+    mods = subprocess.run(
+        [sys.executable, "-c", "import sys, kbslam_torch.streaming, "
+         "kbslam_torch.io.checkpoint, kbslam_torch.io.tum, kbslam_torch.cli;"
+         " print(sorted(m for m in sys.modules if m.startswith(('jax', "
+         "'kbslam.')) or m == 'kbslam'))"],
+        capture_output=True, text=True, cwd=tmp_path, env=env, timeout=120)
+    assert mods.returncode == 0 and mods.stdout.strip() == "[]", mods
     assert not (tmp_path / "kbslam").exists()
     where = subprocess.run(
         [sys.executable, "-c", "import kbslam_torch; print(kbslam_torch.__file__)"],
@@ -67,11 +78,13 @@ def test_slam_without_device_raises_without_cuda(monkeypatch):
     assert SLAM(cfg, seq.K, device="cpu").device == torch.device("cpu")
 
 
-def test_cli_without_device_asks_for_cuda(monkeypatch):
+@pytest.mark.parametrize("extra", [[], ["--chunk", "4", "--ba", "off"]])
+def test_cli_without_device_asks_for_cuda(monkeypatch, extra):
     """The CLI's default device is the card: on a machine without one it
-    fails instead of tracking on the CPU."""
+    fails instead of tracking on the CPU, per frame and chunked."""
     from kbslam_torch import cli
 
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
-        cli.main(["--frames", "1", "--width", "64", "--height", "48"])
+        cli.main(["--frames", "1", "--width", "64", "--height", "48",
+                  *extra])
