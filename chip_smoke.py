@@ -77,14 +77,42 @@ non-zero):
                 the feeds that dispatched a solve and the solve's replay
                 ms;
  12. checkpoint — a chunked run saved at frame 32 and resumed in a fresh
-                stream: frames 32-59 equal phase 10's uninterrupted run.
+                stream: frames 32-59 equal phase 10's uninterrupted run;
+ 13. loop     — the corridor out-and-back of tests/test_loop.py:206-261
+                at 640x480 with ``SLAMConfig()``'s ORB, map and PnP and
+                that test's policy and LoopConfig, loop off and on, BA
+                after each keyframe: at least one verified loop, each
+                against a keyframe >= 10 insertions older with >= 40
+                inliers, and less endpoint drift with loops on; then the
+                same scene at that test's own 320x240 configuration, held
+                to its gates (off: 0 loops, drift > 5 cm; on: >= 3 loops,
+                drift < 0.2 x off); prints per probe host ms, device ms
+                and host syncs, per close launches and device ms; then
+                one probe and one close on the card against the same
+                calls on a CPU copy of the map, with the CPU's minimal
+                sets: equal decisions, inliers within 1% + 1, relative
+                pose, keyframes and landmarks within 1e-4;
+ 14. reloc    — lost-and-found of tests/test_loop.py:264-329 at 640x480
+                (full-width ORB and map, that test's policy and reloc
+                settings) per frame, held to that test's gates, and
+                through ``ChunkedStream`` (chunk 4, graph replays) held
+                to tests/test_loop.py:422-494's; counts the describe
+                launches of the relocalization attempts;
+ 15. chunk_loop — the 640x480 corridor through ``ChunkedStream`` (chunk
+                8, async BA, loop closure and culling) against the same
+                stream run eagerly (``graph=False``), both merging each
+                solve at the next keyframe tick: equal results, at least
+                one correction landing between replays, 0 host syncs in
+                every dispatch after the capture; prints steady ms/frame
+                and the device busy share next to phase 10's.
 Then one JSON line about the kernels, the nvidia-smi line, and the
 result line. The describe kernel's launch count sums phases 5, 7 and
-10. In phase 10 the wrapper's counter counts the eager calls (the
-warm-up before the capture and the tail; a call inside the capture
-launches nothing and is not counted), and the graph's replays, which no
-Python runs, add the stream's replay count times the kernel's launches
-in one replay, counted by torch.profiler.
+10 and the relocalization attempts of phase 14. In phase 10 the
+wrapper's counter counts the eager calls (the warm-up before the capture
+and the tail; a call inside the capture launches nothing and is not
+counted), and the graph's replays, which no Python runs, add the
+stream's replay count times the kernel's launches in one replay, counted
+by torch.profiler.
 
 Times: device time per call, from CUDA events around the replay of a
 CUDA graph of 20 calls (so a wrapper's host time is not counted), and
@@ -558,10 +586,11 @@ def _replay_profile(graph):
             [(k, n, round(t, 2)) for k, (n, t) in top])
 
 
-def chunk_phase(dev, seq, smi):
+def chunk_phase(dev, seq, smi, pace):
     """(10) The chunked streaming executor with ba_mode="off" against the
     eager per-frame path on the card. Returns (the chunked results, the
-    describe launch count of the run)."""
+    describe launch count of the run); ``pace`` receives the steady
+    ms/frame and the device busy share."""
     from kbslam_torch import config
     from kbslam_torch.eval import trajectory
     from kbslam_torch.geom.camera import Intrinsics
@@ -639,6 +668,7 @@ def chunk_phase(dev, seq, smi):
     launches = eager_launches + replays * n_desc
     replay_ms = eager_ms(cs._graph.replay, iters=3, warmup=1)
     ms_frame = float(np.median(paces))
+    pace["ms_frame"], pace["busy"] = ms_frame, replay_ms / (ms_frame * CHUNK)
     print(f"[chunk] {FRAMES} frames 640x480, chunk {CHUNK}, ba off: "
           f"{full} graph replays + {FRAMES - full * CHUNK} eager tail frames,"
           f" equal to the eager per-frame path (success, keyframes, inliers;"
@@ -767,6 +797,469 @@ def checkpoint_phase(dev, seq, ref, smi):
     print(f"[checkpoint] saved at frame 32, resumed in a fresh stream: "
           f"frames 32-{FRAMES - 1} equal to the uninterrupted run (poses "
           f"within {worst:.1e}); {smi}", flush=True)
+
+
+LOOP_GATES = dict(min_separation=10, score_min=0.7, min_inliers=40,
+                  max_trans_disc=0.45, max_rot_disc_deg=15.0)
+
+
+def corridor(height, width):
+    """tests/test_loop.py:225-231's closed corridor (out and back), the
+    focal length scaled with the width."""
+    from kbslam_torch.io import synthetic
+
+    out = synthetic.corridor_trajectory(40)
+    poses = np.concatenate([out, out[::-1][1:]])
+    return synthetic.render_sequence(
+        num_frames=len(poses), height=height, width=width,
+        fx=260.0 * width / 320, scene="corridor", depth_noise_mm=1.0, seed=2,
+        poses=poses)
+
+
+def corridor_config(loop_on, full, cull=False):
+    """The corridor test's policy and LoopConfig over ``SLAMConfig()``
+    (full: 640x480, its ORB, map and PnP) or that test's own 320x240
+    ORB, map and PnP."""
+    import dataclasses
+
+    from kbslam_torch import config
+
+    cfg = config.SLAMConfig(
+        policy=config.KeyframePolicyConfig(min_frame_gap=3,
+                                           rotation_threshold_deg=2.0),
+        loop=config.LoopConfig(enabled=loop_on, **LOOP_GATES),
+        cull=config.CullConfig(enabled=cull))
+    if full:
+        return cfg
+    return cfg.replace(
+        image_height=240, image_width=320,
+        orb=config.OrbConfig(num_features=512, num_levels=4,
+                             max_features=512),
+        pnp=dataclasses.replace(cfg.pnp, num_hypotheses=128),
+        map=config.MapConfig(max_keyframes=64, max_map_points=32768))
+
+
+class _Timed:
+    """Wraps a device function: host ms of each call (its enqueue) and
+    CUDA events around it, read after the run."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        out = self.fn(*args, **kwargs)
+        end.record()
+        self.calls.append(((time.perf_counter() - t) * 1e3, start, end))
+        return out
+
+    def times(self):
+        torch.cuda.synchronize()
+        return ([round(h, 2) for h, _, _ in self.calls],
+                [round(s.elapsed_time(e), 2) for _, s, e in self.calls])
+
+
+def cuda_event_ms(fn, n: int = 3):
+    """Milliseconds by CUDA events around each of ``n`` calls of ``fn``."""
+    timed = _Timed(fn)
+    for _ in range(n):
+        timed()
+    return timed.times()[1]
+
+
+def run_corridor(dev, seq, cfg, timed=False):
+    """SLAM with BA after each keyframe over the corridor: (shell,
+    refined endpoint drift, the runner's probe and close timers)."""
+    from kbslam_torch.slam import SLAM
+
+    slam = SLAM(cfg, seq.K, ba_mode="on_keyframe", use_mask=False,
+                device=dev)
+    probe = close = None
+    if timed and slam._loop is not None:
+        probe = slam._loop._probe = _Timed(slam._loop._probe)
+        close = slam._loop._close = _Timed(slam._loop._close)
+    track(slam, seq)
+    slam.finish()
+    refined = slam.refined_trajectory()[:, :3, 3]
+    return slam, float(np.linalg.norm(refined[-1] - refined[0])), probe, close
+
+
+def _cpu_sets(ordinal):
+    """The probe's minimal sets drawn on the CPU, moved to the tensors'
+    device: the card and the CPU solve the same hypotheses."""
+    from kbslam_torch.loop.detect import PROBE_SEED
+    from kbslam_torch.pnp.ransac import hash_sampler
+
+    inner = hash_sampler(PROBE_SEED, torch.tensor(ordinal, dtype=torch.int32))
+
+    def sample(valid, pool, *rest):
+        d, k = inner(valid.cpu(), None if pool is None else pool.cpu(), *rest)
+        return d.to(valid.device), None if k is None else k.to(valid.device)
+    return sample
+
+
+def probe_close_vs_cpu(slam, dev):
+    """One probe and one close on the card against the same calls on a
+    CPU copy of the final map (phase 13). Returns the printed figures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kbslam_torch.geom.se3 import SE3
+    from kbslam_torch.device import CapturedCall
+    from kbslam_torch.loop.closure import make_close_loop
+    from kbslam_torch.loop.detect import make_loop_probe
+    from kbslam_torch.loop.runner import LoopCloser
+    from kbslam_torch.mapping.state import MapState
+    from kbslam_torch.profile_step import sync_sites
+
+    cfg, lc = slam.config, slam.config.loop
+    m = slam.state.map
+    m_cpu = MapState(*(t.cpu() for t in m))
+    K = m.capacity_kf
+    probe = make_loop_probe(cfg, slam.intr, sampler_for=_cpu_sets,
+                            word_bits=lc.word_bits, **LOOP_GATES)
+
+    def probe_on(mm, qid):
+        i32 = dict(dtype=torch.int32, device=mm.kf_id.device)
+        return probe(mm, torch.tensor(qid % K, **i32),
+                     torch.tensor(qid, **i32), torch.tensor(qid + 1, **i32))
+
+    # the newest closed query that still verifies on the corrected map
+    for qid in [e["query_id"] for e in reversed(slam.loop_events)]:
+        cc, kc = probe_on(m_cpu, qid)
+        if bool(kc.ok):
+            break
+    else:
+        raise AssertionError("no closed query verifies on the final map")
+    cg, kg = probe_on(m, qid)
+    ni_g, ni_c = int(kg.num_inliers), int(kc.num_inliers)
+    dt = float((kg.rel_t.cpu() - kc.rel_t).abs().max())
+    dq = float(_angle_deg(kg.rel_q.cpu()[None], kc.rel_q[None])[0])
+    if not (bool(cg.found) == bool(cc.found) and bool(kg.ok) == bool(kc.ok)
+            and bool(kc.ok) and int(cg.slot) == int(cc.slot)
+            and abs(ni_g - ni_c) <= 0.01 * ni_c + 1 and dt <= 1e-4
+            and np.radians(dq) <= 1e-4):
+        raise AssertionError(
+            f"probe card != CPU: found {bool(cg.found)}/{bool(cc.found)}, "
+            f"ok {bool(kg.ok)}/{bool(kc.ok)}, slot {int(cg.slot)}/"
+            f"{int(cc.slot)}, inliers {ni_g}/{ni_c}, rel {dt} m {dq} deg")
+
+    # the close: the verified constraint moved by 5 cm and 2 deg, so the
+    # solve moves every keyframe and landmark
+    nudge = SE3.exp(torch.tensor([0.05, 0, 0, 0, np.radians(2.0), 0],
+                                 dtype=torch.float32))
+    rel = nudge.compose(SE3(kc.rel_q, kc.rel_t)).normalize()
+    close = make_close_loop(lc.max_iterations, lc.loop_weight)
+    out = {}
+    for name, mm in (("card", m), ("cpu", m_cpu)):
+        d = mm.kf_id.device
+        out[name] = close(mm, cc.slot.to(d), torch.tensor(qid % K,
+                                                          dtype=torch.int32,
+                                                          device=d),
+                          rel.q.to(d), rel.t.to(d),
+                          torch.tensor(True, device=d))
+    (mg, sg), (mc, sc) = out["card"], out["cpu"]
+    gap_t = float((mg.kf_t.cpu() - mc.kf_t).abs().max())
+    gap_q = float(_angle_deg(mg.kf_q.cpu(), mc.kf_q).max())
+    gap_p = float((mg.mp_pos.cpu() - mc.mp_pos).abs().max())
+    moved = float((mc.kf_t - m_cpu.kf_t).abs().max())
+    if not (gap_t <= 1e-4 and gap_p <= 1e-4 and np.radians(gap_q) <= 1e-4
+            and moved > 1e-3):
+        raise AssertionError(f"close card != CPU: kf_t {gap_t}, kf_q "
+                             f"{gap_q} deg, mp_pos {gap_p}, moved {moved}")
+    # one probe's and one close's kernel launches and kernel time, and
+    # the host syncs of a runner tick that probes and closes
+    args = (m, cc.slot.to(dev), torch.tensor(qid % K, dtype=torch.int32,
+                                             device=dev), rel.q.to(dev),
+            rel.t.to(dev), torch.tensor(True, device=dev))
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        return len(ks), round(sum(e.device_time for e in ks) / 1e3, 3)
+
+    close_kernels = kernels(lambda: close(*args))
+    probe_kernels = kernels(lambda: probe_on(m, qid))
+    # the runner's close on the card: the same close as one CUDA graph
+    graphed = CapturedCall(close, *args)
+    gm, gs = graphed(*args)
+    em, es = close(*args)
+    if not all(torch.equal(a, b) for a, b in zip(
+            [gm.kf_q, gm.kf_t, gm.mp_pos, *gs], [em.kf_q, em.kf_t, em.mp_pos,
+                                                 *es])):
+        raise AssertionError("graphed close != eager close")
+    replay_ms = cuda_event_ms(lambda: graphed(*args))
+    runner = LoopCloser(cfg, slam.intr, num_kf=qid)
+    runner.note_insertions()
+    sites = sync_sites(lambda: runner.tick(slam.state, 0, None))
+    if not all(k.startswith("/loop/runner.py") for k in sites):
+        raise AssertionError(f"host syncs outside the runner's reads: {sites}")
+    return dict(probe_inliers=(ni_g, ni_c), rel_gap=(dt, dq),
+                close_gap=(gap_t, gap_q, gap_p), moved=moved,
+                close_kernels=close_kernels, probe_kernels=probe_kernels,
+                graphed_ms=replay_ms,
+                tick_syncs=dict(sites), closed=len(runner.events))
+
+
+def loop_phase(dev, smi):
+    """(13) The corridor out-and-back with loop closure, per frame."""
+    seq = corridor(480, 640)
+    _, off, _, _ = run_corridor(dev, seq, corridor_config(False, True))
+    slam, on, probe, close = run_corridor(dev, seq,
+                                          corridor_config(True, True),
+                                          timed=True)
+    ev = slam.loop_events
+    bad = [e for e in ev if e["query_id"] - e["cand_id"] < 10
+           or e["inliers"] < 40]
+    if not ev or bad or not on < off:
+        raise AssertionError(f"corridor 640x480: {len(ev)} loops ({bad} "
+                             f"below the gates), drift on {on} off {off}")
+    p_host, p_dev = probe.times()
+    c_host, c_dev = close.times()
+    vs = probe_close_vs_cpu(slam, dev)
+    print(f"[loop] corridor 640x480 ({len(seq.rgb)} frames, SLAMConfig() "
+          f"ORB/map/PnP, the test's policy and LoopConfig, BA on keyframe): "
+          f"{len(ev)} loops closed {[(e['query_id'], e['cand_id'], e['inliers']) for e in ev]}, "
+          f"endpoint drift on {on * 1e3:.2f} mm, off {off * 1e3:.2f} mm; "
+          f"{len(p_host)} probes: host ms {p_host}, stream ms (CUDA events "
+          f"around the call) {p_dev}; {len(c_host)} closes: host ms "
+          f"{c_host}, stream ms {c_dev}; "
+          f"after the run, card vs CPU: probe inliers {vs['probe_inliers']}, "
+          f"relative pose gap {vs['rel_gap'][0]:.2e} m {vs['rel_gap'][1]:.2e} "
+          f"deg; close (keyframes moved {vs['moved']:.3f} m) gaps kf_t "
+          f"{vs['close_gap'][0]:.2e} m, kf_q {vs['close_gap'][1]:.2e} deg, "
+          f"mp_pos {vs['close_gap'][2]:.2e} m; (kernel launches, kernel ms) "
+          f"by torch.profiler: one probe {vs['probe_kernels']} (with the "
+          f"minimal sets drawn on the CPU), one eager close "
+          f"{vs['close_kernels']}, the runner's close as one CUDA graph "
+          f"(bit-equal to the eager one) {vs['graphed_ms']} ms by CUDA "
+          f"events, its input copy included; "
+          f"host syncs of one runner tick that "
+          f"probes and closes ({vs['closed']} closed): {vs['tick_syncs']}; "
+          f"{smi}", flush=True)
+
+    seq = corridor(240, 320)
+    s_off, off, _, _ = run_corridor(dev, seq, corridor_config(False, False))
+    s_on, on, _, _ = run_corridor(dev, seq, corridor_config(True, False))
+    ev = s_on.loop_events
+    if (s_off.loop_events or not off > 0.05 or len(ev) < 3
+            or any(e["query_id"] - e["cand_id"] < 10 for e in ev)
+            or not on < 0.2 * off):
+        raise AssertionError(f"corridor 320x240 gates: off {off} m "
+                             f"({len(s_off.loop_events)} loops), on {on} m "
+                             f"({len(ev)} loops)")
+    print(f"[loop] corridor 320x240 (tests/test_loop.py's configuration): "
+          f"off {off * 1e3:.2f} mm, 0 loops; on {on * 1e3:.2f} mm, "
+          f"{len(ev)} loops; {smi}", flush=True)
+
+
+def lost_and_found(T_back, height=480, width=640):
+    """tests/test_loop.py:277-295: pan away, blank frames, pan back."""
+    from scipy.spatial.transform import Rotation
+
+    from kbslam_torch.io import synthetic
+
+    def pan(T):
+        out = []
+        for i in range(T):
+            s = i / max(T - 1, 1)
+            P = np.eye(4)
+            P[:3, :3] = Rotation.from_rotvec([0, 0.55 * s, 0]).as_matrix()
+            P[:3, 3] = [2.2 * s, 0.0, -2.5]
+            out.append(P)
+        return np.stack(out)
+
+    poses = np.concatenate([pan(22), pan(22)[:3], pan(22)[:T_back]])
+    seq = synthetic.render_sequence(
+        num_frames=len(poses), height=height, width=width,
+        fx=260.0 * width / 320, scene="spheres", seed=2, poses=poses)
+    rgb, dep = seq.rgb.copy(), seq.depth.copy()
+    rgb[22:25] = 0
+    dep[22:25] = 0
+    return seq, rgb, dep, poses
+
+
+def lost_config(reloc_after):
+    from kbslam_torch import config
+
+    return config.SLAMConfig(
+        policy=config.KeyframePolicyConfig(min_frame_gap=4),
+        loop=config.LoopConfig(reloc_after=reloc_after, reloc_score_min=0.4,
+                               reloc_min_inliers=30))
+
+
+def tail_errors(est, poses, frames):
+    T0_gt, T0_est = np.linalg.inv(poses[0]), np.linalg.inv(est[0])
+    return np.array([np.linalg.norm((T0_est @ est[i])[:3, 3]
+                                    - (T0_gt @ poses[i])[:3, 3])
+                     for i in frames])
+
+
+class _CountedReloc:
+    """Wraps a shell's relocalization step: attempts, their describe
+    launches, host ms and CUDA-event device ms."""
+
+    def __init__(self, fn):
+        from kbslam_torch.ops import describe as describe_ops
+
+        self.ops, self.fn, self.launches = describe_ops, fn, 0
+        self.timed = _Timed(fn)
+
+    def __call__(self, *args, **kwargs):
+        before = self.ops.launches
+        out = self.timed(*args, **kwargs)
+        self.launches += self.ops.launches - before
+        return out
+
+
+def reloc_phase(dev, smi) -> int:
+    """(14) Lost-and-found at 640x480, per frame and chunked. Returns the
+    describe launches of the relocalization attempts."""
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.pipeline import init_state
+    from kbslam_torch.slam import SLAM, pose_T
+    from kbslam_torch.streaming import ChunkedStream
+
+    seq, rgb, dep, poses = lost_and_found(8)
+    errs, shells = {}, {}
+    for reloc_after in (0, 2):
+        s = SLAM(lost_config(reloc_after), seq.K, use_mask=False, device=dev)
+        if s._reloc is not None:
+            s._reloc = _CountedReloc(s._reloc)
+        for i in range(len(poses)):
+            s.process(rgb[i], dep[i])
+        errs[reloc_after] = tail_errors(s.frame_poses, poses,
+                                        range(25, len(poses)))
+        shells[reloc_after] = s
+    s = shells[2]
+    ev = s.reloc_events
+    tail = [d["success"] for d in s.diagnostics[26:]]
+    if (not ev or ev[0]["inliers"] < 30 or ev[0]["score"] < 0.4
+            or not all(tail) or not errs[2].max() < 0.08
+            or not errs[0].max() > 0.3):
+        raise AssertionError(f"reloc per frame: events {ev}, tail {tail}, "
+                             f"errors on {errs[2]} off {errs[0]}")
+    pf = s._reloc
+    pf_host, pf_dev = pf.timed.times()
+    # one attempt on a lost frame (a copy of the final state) and its
+    # read, with every host sync counted: only the read may wait
+    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.slam import reloc_to_host
+    from kbslam_torch.streaming import clone_state
+
+    frame = [torch.from_numpy(a).to(dev) for a in (rgb[27], dep[27].astype(
+        np.int32))]
+    pf.fn(clone_state(s.state), *frame)          # warm: per-device tables
+    reloc_sites = sync_sites(lambda: reloc_to_host(pf.fn(
+        clone_state(s.state), *frame, exclude_from_id=s._tracked_kf)[1],
+        s.state.map))
+    if sum(reloc_sites.values()) != 1 or not all(
+            k.startswith("/slam.py") for k in reloc_sites):
+        raise AssertionError(f"host syncs of one attempt: {reloc_sites}")
+
+    seq, rgb, dep, poses = lost_and_found(11)
+    cfg = lost_config(2)
+    cs = ChunkedStream(cfg, Intrinsics.from_matrix(seq.K),
+                       init_state(cfg, dev), chunk=4)
+    ch = cs._reloc = _CountedReloc(cs._reloc)
+    got = []
+    for i in range(len(poses)):
+        got += cs.feed(rgb[i], dep[i])
+    got += cs.flush()
+    cev = cs.reloc_events
+    if not cev or cs.replays < 1:
+        raise AssertionError(f"chunked reloc: events {cev}, replays "
+                             f"{cs.replays}")
+    recover_by = cev[0]["frame"] + 2 * 4
+    tail = [r["success"] for r in got if r["frame"] >= recover_by]
+    est = [pose_T(r["pose_q"], r["pose_t"]) for r in got]
+    cerr = tail_errors(est, poses, range(recover_by, len(poses)))
+    if (len(got) != len(poses) or cev[0]["inliers"] < 30
+            or cev[0]["score"] < 0.4 or not tail or not all(tail)
+            or not cerr.max() < 0.08):
+        raise AssertionError(f"chunked reloc: events {cev}, tail {tail}, "
+                             f"errors {cerr}")
+    ch_host, ch_dev = ch.timed.times()
+    print(f"[reloc] lost-and-found 640x480 (SLAMConfig() ORB/map, the test's "
+          f"policy and reloc settings): per frame {len(ev)} relocalizations "
+          f"{ev}, tail error max {errs[2].max() * 1e3:.2f} mm (off "
+          f"{errs[0].max() * 1e3:.1f} mm), {len(pf_host)} attempts host ms "
+          f"{pf_host} device ms {pf_dev}, describe launches {pf.launches}, "
+          f"host syncs of one attempt and its read {dict(reloc_sites)}; "
+          f"chunked (chunk 4, {cs.replays} replays) {cev}, tail from frame "
+          f"{recover_by} all tracked, error max {cerr.max() * 1e3:.2f} mm, "
+          f"{len(ch_host)} attempts host ms {ch_host} device ms {ch_dev}, "
+          f"describe launches {ch.launches}; {smi}", flush=True)
+    return pf.launches + ch.launches
+
+
+def chunk_loop_phase(dev, smi, pace):
+    """(15) The 640x480 corridor through ChunkedStream (chunk 8, async BA,
+    loop closure, culling), replayed against the same stream run
+    eagerly."""
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.pipeline import init_state
+    from kbslam_torch.streaming import ChunkedStream
+
+    seq = corridor(480, 640)
+    cfg = corridor_config(True, True, cull=True)
+    intr = Intrinsics.from_matrix(seq.K)
+    runs = {}
+    for graph in (False, True):
+        cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK,
+                           ba_mode="async", graph=graph)
+        # merge each solve at the next keyframe tick (waiting for it), so
+        # both runs merge at the same drained frames
+        cs._async.ready = lambda cs=cs: cs._async.inflight is not None
+        at_close = []
+        close = cs._loop._close
+
+        def counted(*args, cs=cs, at_close=at_close, close=close):
+            at_close.append(cs.replays)
+            return close(*args)
+
+        cs._loop._close = counted
+        got, ends, host_ms, _ = _stream(cs, seq, range(len(seq.rgb)),
+                                        sync_checked=graph)
+        cs._loop._close = close
+        del cs._async.ready
+        runs[graph] = (got, ends, host_ms, at_close, cs)
+    (ref, _, _, _, _), (got, ends, host_ms, at_close, cs) = runs[False], runs[True]
+    worst = _same_results(got, ref, "chunked loop vs eager stream")
+    between = [r for r in at_close if 1 <= r < cs.replays]
+    if not between:
+        raise AssertionError(f"no correction between replays: closes at "
+                             f"replays {at_close} of {cs.replays}")
+    full = len(seq.rgb) // CHUNK
+    ms_frame = ends[0].elapsed_time(ends[full - 1]) / ((full - 1) * CHUNK)
+    # a cull on a copy of the final map, every host sync counted
+    from kbslam_torch.mapping.cull import make_cull
+    from kbslam_torch.mapping.state import device_copy
+    from kbslam_torch.profile_step import sync_sites
+
+    cull = make_cull(cfg.cull)
+    cull(device_copy(cs.state.map))
+    cull_sites = sync_sites(lambda: cull(device_copy(cs.state.map)))
+    if cull_sites:
+        raise AssertionError(f"host syncs in a cull: {cull_sites}")
+    replay_ms = eager_ms(cs._graph.replay, iters=3, warmup=1)
+    print(f"[chunk_loop] corridor 640x480, chunk {CHUNK}, ba async, loop and "
+          f"cull on: {len(cs.loop_events)} loops closed (at replays "
+          f"{at_close} of {cs.replays}; {len(between)} between replays), "
+          f"{len(cs.ba_stats)} solves; equal to the eager stream (poses "
+          f"within {worst:.1e}); 0 host syncs in every dispatch after the "
+          f"capture; host ms per dispatch median "
+          f"{np.median(host_ms[1:full]):.3f}; steady {ms_frame:.3f} ms/frame "
+          f"(chunks 2-{full}, CUDA events, probes and closes included), "
+          f"device busy {replay_ms / (ms_frame * CHUNK):.1%}; phase 10 (loop "
+          f"off, plane): {pace['ms_frame']:.3f} ms/frame, busy "
+          f"{pace['busy']:.1%}; 0 host syncs in a cull; {smi}", flush=True)
 
 
 def main() -> int:
@@ -970,10 +1463,16 @@ def main() -> int:
 
     # 10-12. the chunked streaming executor: one CUDA graph per chunk,
     # chunk-late async BA on a graphed solve, checkpoint and resume
-    chunked, chunk_launches = chunk_phase(dev, seq, smi)
+    pace = {}
+    chunked, chunk_launches = chunk_phase(dev, seq, smi, pace)
     launches["describe_keypoints"] += chunk_launches
     chunk_async_phase(dev, seq, smi)
     checkpoint_phase(dev, seq, chunked, smi)
+
+    # 13-15. loop closure, relocalization and culling
+    loop_phase(dev, smi)
+    launches["describe_keypoints"] += reloc_phase(dev, smi)
+    chunk_loop_phase(dev, smi, pace)
 
     ref_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "kbslam") + os.sep

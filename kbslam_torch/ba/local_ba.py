@@ -20,7 +20,7 @@ from kbslam_torch.ba.compact import compact_problem
 from kbslam_torch.ba.compact_lm import solve_window_compact
 from kbslam_torch.ba.merge import merge_ba_result
 from kbslam_torch.ba.problem import build_problem
-from kbslam_torch.device import graph_capture
+from kbslam_torch.device import CapturedCall
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.mapping.state import MapState, device_copy, scatter_rows
 
@@ -96,7 +96,8 @@ def make_local_ba(cfg, intr: Intrinsics):
 
 
 class GraphedLocalBA:
-    """``local_ba`` captured as one CUDA graph for one map shape.
+    """``local_ba`` captured as one CUDA graph for one map shape
+    (``device.CapturedCall``).
 
     The solve makes no host sync, so it captures as it is. ``snapshot``
     copies a live map into the graph's static input on the current
@@ -109,26 +110,21 @@ class GraphedLocalBA:
     def __init__(self, cfg, intr: Intrinsics, like: MapState):
         if not like.kf_q.is_cuda:
             raise ValueError("GraphedLocalBA needs a map on a CUDA device")
-        dev = like.kf_q.device
-        self.input = device_copy(like)
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):   # warm-up: library handles, caches
-            local_ba(self.input, intr, cfg)
-        cur.wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with graph_capture(self.graph):
-            self.result, self.stats = local_ba(self.input, intr, cfg)
-            self.stats_vector = stats_vector(self.stats)
+
+        def solve(m):
+            result, stats = local_ba(m, intr, cfg)
+            return result, stats, stats_vector(stats)
+
+        self._captured = CapturedCall(solve, like)
+        self.input = self._captured.inputs[0]
+        self.result, self.stats, self.stats_vector = self._captured.outputs
 
     def snapshot(self, live: MapState) -> MapState:
-        for dst, src in zip(self.input, live):
-            dst.copy_(src)
+        self._captured.load(live)
         return self.input
 
     def solve(self) -> Tuple[MapState, BAStats]:
-        self.graph.replay()
+        self._captured.graph.replay()
         return self.result, self.stats
 
 

@@ -10,11 +10,14 @@ same flags, validation errors and summary JSON keys:
 - ``--chunk N``: the chunked streaming executor (``streaming.py``, one
   CUDA graph replay per N frames on the card), with ``--ba off`` or
   ``async`` and optional ``--gray`` ingress;
+- ``--loop`` (loop closure), ``--reloc N`` (relocalization after N
+  failures in a row) and ``--cull`` (keyframe culling), per frame and
+  with ``--chunk``;
 - ``--mask``, ``--dist``, ``--save-trajectory``, ``--save-checkpoint``,
   ``--resume`` and ``--eval``.
 
-``--viewer``, ``--loop``, ``--reloc`` and ``--dense`` belong to later
-slices of the port (ROADMAP.md) and are refused; so is any other flag.
+``--viewer`` and ``--dense`` belong to later slices of the port
+(ROADMAP.md) and are refused; so is any other flag.
 """
 from __future__ import annotations
 
@@ -26,9 +29,7 @@ import time
 
 import numpy as np
 
-_LATER = {"viewer": "the Rerun viewer", "loop": "loop closure (Slice D)",
-          "reloc": "relocalization (Slice D)", "dense": "dense mapping "
-          "(Slice E)"}
+_LATER = {"viewer": "the Rerun viewer", "dense": "dense mapping (Slice E)"}
 
 
 def _frames(args, ap):
@@ -78,6 +79,14 @@ def _evaluate(summary, est, gts, refined):
     summary["rpe_rot_rad"] = r_err
 
 
+def _loop_summary(summary, args, shell):
+    """The reference's summary fields of loop closure and relocalization."""
+    if args.loop:
+        summary["loop_closures"] = len(shell.loop_events)
+    if args.reloc:
+        summary["relocalizations"] = len(shell.reloc_events)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser("kbslam_torch")
     ap.add_argument("--source", default="synthetic",
@@ -110,10 +119,16 @@ def main(argv=None):
                     help="host-side grayscale ingress (only with --chunk)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when named (cpu)")
+    ap.add_argument("--loop", action="store_true",
+                    help="loop closure: place recognition and a pose-graph "
+                    "correction (per frame and with --chunk)")
+    ap.add_argument("--reloc", type=int, default=0, metavar="N",
+                    help="relocalize after N consecutive tracking failures "
+                    "(0 = lost for good, the reference's behaviour)")
+    ap.add_argument("--cull", action="store_true",
+                    help="keyframe culling (disabled in the reference)")
     ap.add_argument("--viewer", choices=["rerun", "none"], default="none")
-    for flag in ("loop", "dense"):
-        ap.add_argument(f"--{flag}", action="store_true")
-    ap.add_argument("--reloc", type=int, default=0, metavar="N")
+    ap.add_argument("--dense", action="store_true")
     args = ap.parse_args(argv)
     for flag, what in _LATER.items():
         if getattr(args, flag) not in (False, 0, "none"):
@@ -128,6 +143,11 @@ def main(argv=None):
     K, cfg, frames = _frames(args, ap)
     if (args.height, args.width) != (cfg.image_height, cfg.image_width):
         cfg = cfg.replace(image_height=args.height, image_width=args.width)
+    if args.cull:
+        cfg = cfg.replace(cull=dataclasses.replace(cfg.cull, enabled=True))
+    if args.loop or args.reloc:
+        cfg = cfg.replace(loop=dataclasses.replace(
+            cfg.loop, enabled=bool(args.loop), reloc_after=args.reloc))
     dist = [float(c) for c in args.dist.split(",")] if args.dist else None
     if args.chunk:
         _run_chunked(args, cfg, K, frames, dist)
@@ -167,6 +187,7 @@ def main(argv=None):
                                      for x in slam.diagnostics][1:]))
         if n > 1 else None,
     )
+    _loop_summary(summary, args, slam)
     if args.eval and len(gts) == n and n > 1:
         _evaluate(summary, est, gts, slam.refined_trajectory()
                   if mode != "disabled" else None)
@@ -229,6 +250,7 @@ def _run_chunked(args, cfg, K, frames, dist):
         gray_ingress=bool(args.gray),
         streaming_fps=round(n / wall, 1) if wall > 0 else None,
     )
+    _loop_summary(summary, args, cs)
     if args.eval and len(gts) == n and n > 1:
         refined = None
         if cs.ba_stats:

@@ -6,6 +6,8 @@ arrays, or any object with the same field names — into the port's state
 on a device; ``to_numpy`` turns the port's state back into the same
 NamedTuples holding numpy arrays, which the JAX types accept field by
 field (``kbslam.mapping.state.MapState(**m._asdict())``).
+``tuple_to_torch`` carries any other NamedTuple of arrays, such as the
+loop closure's ``PoseGraph``, ``LoopCandidate`` and ``LoopConstraint``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,15 @@ from kbslam_torch.mapping.state import MapState
 from kbslam_torch.pipeline import TrackState
 
 _INT32 = ("kf_mp", "kf_id", "num_kf", "num_mp")
+
+
+def tuple_to_torch(value, cls, device):
+    """Any NamedTuple of arrays (a JAX ``PoseGraph``, ``LoopCandidate`` or
+    ``LoopConstraint`` after ``jax.device_get``) as the port's ``cls``
+    with the same field names, each field a tensor on ``device`` (a
+    copy, with the array's dtype)."""
+    return cls(**{name: torch.from_numpy(np.array(getattr(value, name)))
+                  .to(device) for name in cls._fields})
 
 
 def map_to_torch(m, device) -> MapState:

@@ -52,3 +52,55 @@ def graph_capture(graph: "torch.cuda.CUDAGraph"):
     finally:
         if was_enabled:
             gc.enable()
+
+
+def tensor_leaves(tree):
+    """The tensors of nested tuples (NamedTuples included), in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, tuple):
+        for x in tree:
+            yield from tensor_leaves(x)
+
+
+class CapturedCall:
+    """``fn(*args)`` captured as one CUDA graph over static copies of its
+    arguments (tensors, or nested tuples of them).
+
+    A call copies its arguments into the static inputs on the current
+    stream, replays the graph and returns ``fn``'s outputs, which live in
+    the graph's memory until the next call: read or copy them first. The
+    capture follows a warm-up on a side stream (library handles, caches);
+    ``fn`` must make no host sync, and a capture that fails raises."""
+
+    def __init__(self, fn, *args):
+        self.inputs = _clone(args)
+        dev = next(tensor_leaves(args)).device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            fn(*self.inputs)
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with graph_capture(self.graph):
+            self.outputs = fn(*self.inputs)
+
+    def load(self, *args):
+        """Copy ``args`` into the static inputs on the current stream."""
+        for dst, src in zip(tensor_leaves(self.inputs), tensor_leaves(args)):
+            dst.copy_(src)
+
+    def __call__(self, *args):
+        self.load(*args)
+        self.graph.replay()
+        return self.outputs
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        items = [_clone(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree

@@ -18,8 +18,13 @@ merges on the current stream after ``wait_event``. On the CPU (only
 when the caller names it) the solve runs at dispatch and merges at the
 next poll.
 
-Culling, loop closure, relocalization and dense mapping are later slices
-of the port (ROADMAP.md) and raise ``NotImplementedError``.
+Keyframe culling (``config.cull``), loop closure (``config.loop.enabled``)
+and relocalization (``config.loop.reloc_after``) run in the reference's
+order inside ``process``: cull on insertion, then BA (or the merge of a
+finished asynchronous solve), the relocalization tick, the loop tick, and
+the asynchronous dispatch last, so a new solve sees the corrected map.
+Dense mapping is a later slice of the port (ROADMAP.md) and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,9 @@ from kbslam_torch.ba.local_ba import (AsyncLocalBA, make_local_ba,
                                       stats_record, stats_vector)
 from kbslam_torch.device import pick_device
 from kbslam_torch.geom.camera import Intrinsics
+from kbslam_torch.loop.reloc import make_reloc_step
+from kbslam_torch.loop.runner import LoopCloser
+from kbslam_torch.mapping.cull import make_cull
 from kbslam_torch.pipeline import init_state, make_track_step
 
 _OUTPUT_FIELDS = ("pose_q", "pose_t", "success", "added_kf", "inlier_ratio",
@@ -84,6 +92,23 @@ def output_to_host(out) -> dict:
     return row_to_fields(output_rows(stacked)[0].cpu().numpy())
 
 
+def reloc_to_host(r, m) -> dict:
+    """A relocalization attempt's result (``loop.reloc.RelocResult``) and
+    the map after it, in one device-to-host copy: success, the matched
+    keyframe's id, score, inliers, the map's insertion count and the
+    recovered pose."""
+    slot = r.slot.reshape(1).to(torch.int64)
+    v = torch.cat([torch.stack([
+        r.success.to(torch.float64),
+        m.kf_id.index_select(0, slot)[0].to(torch.float64),
+        r.score.to(torch.float64), r.num_inliers.to(torch.float64),
+        m.num_kf.to(torch.float64)]),
+        r.pose_q.to(torch.float64), r.pose_t.to(torch.float64)]).cpu().numpy()
+    return dict(success=bool(v[0]), matched_id=int(v[1]), score=float(v[2]),
+                inliers=int(v[3]), num_kf=int(v[4]), pose_q=v[5:9],
+                pose_t=v[9:12])
+
+
 def refine_frame_poses(frame_poses, frame_anchors, map_state) -> np.ndarray:
     """Each frame pose re-expressed against its anchor keyframe's current
     pose: T_i' = T_a(now) T_a(at tracking)^-1 T_i. Frames whose anchor
@@ -125,10 +150,7 @@ class SLAM:
                  device: Optional[torch.device] = None):
         if ba_mode not in ("on_keyframe", "async", "disabled"):
             raise ValueError(f"unknown ba_mode {ba_mode!r}")
-        for name, on in (("cull", config.cull.enabled),
-                         ("loop", config.loop.enabled
-                          or config.loop.reloc_after > 0),
-                         ("dense", config.dense.enabled),
+        for name, on in (("dense", config.dense.enabled),
                          ("dense_icp", config.dense_icp.mode != "off")):
             if on:
                 raise NotImplementedError(
@@ -143,7 +165,22 @@ class SLAM:
         self._ba = make_local_ba(config.ba, self.intr)
         self._async = (AsyncLocalBA(config.ba, self.intr)
                        if ba_mode == "async" else None)
-        self.state = init_state(config, self.device)
+        self._cull = make_cull(config.cull) if config.cull.enabled else None
+        lc = config.loop
+        self._loop = (LoopCloser(config, self.intr) if lc.enabled else None)
+        self._reloc = (make_reloc_step(
+            config, self.intr, use_mask=use_mask, word_bits=lc.word_bits,
+            score_min=lc.reloc_score_min, min_inliers=lc.reloc_min_inliers,
+            seed=seed) if lc.reloc_after > 0 else None)
+        self._fail_streak = 0
+        # keyframes from this id on were inserted while tracking failed
+        # (at held poses): relocalization does not match them
+        self._tracked_kf = 0
+        # the runner's event list itself
+        self.loop_events: List[dict] = (
+            self._loop.events if self._loop is not None else [])
+        self.reloc_events: List[dict] = []
+        self._state = init_state(config, self.device)
         self._ones_mask = None
         self._pinned = None   # ([(shape, dtype)], pinned host buffers)
         self._frame = 0
@@ -152,6 +189,19 @@ class SLAM:
         self.frame_anchors: List[tuple] = []     # (anchor kf id, T_anchor)
         self.diagnostics: List[dict] = []
         self.ba_stats: List[dict] = []
+
+    @property
+    def state(self):
+        return self._state
+
+    @state.setter
+    def state(self, value):
+        """Replace the tracking state (a resume): the loop runner counts
+        its ordinals on from the new map's insertions."""
+        self._state = value
+        self._tracked_kf = int(value.map.num_kf)
+        if self._loop is not None:
+            self._loop.start_at(self._tracked_kf)
 
     def _upload(self, rgb, depth, mask):
         """The frame on the device. On CUDA it goes through pinned host
@@ -191,27 +241,45 @@ class SLAM:
         """Track one frame (rgb [H, W, 3] uint8, depth [H, W] uint16)."""
         args = self._upload(rgb, depth, mask)
         t0 = time.perf_counter()
-        self.state, out = self._step(self.state, *args)
+        self._state, out = self._step(self._state, *args)
         o = output_to_host(out)
-        added_kf = bool(o["added_kf"])
+
+        if self._cull is not None and o["added_kf"]:
+            self._state = self._state._replace(
+                map=self._cull(self._state.map))
 
         ran_ba = False
-        if self.ba_mode == "on_keyframe" and added_kf:
+        if self.ba_mode == "on_keyframe" and o["added_kf"]:
             tb = time.perf_counter()
-            new_map, stats = self._ba(self.state.map)
-            self.state = self.state._replace(map=new_map)
+            new_map, stats = self._ba(self._state.map)
+            self._state = self._state._replace(map=new_map)
             v = stats_vector(stats).cpu().numpy()
             self.ba_stats.append(stats_record(
                 v, wall_ms=(time.perf_counter() - tb) * 1e3))
             ran_ba = True
         elif self.ba_mode == "async":
-            # merge a finished solve first; a new one is dispatched last,
-            # on the map as this frame leaves it
+            # merge a finished solve first, so the probes below see a
+            # quiet pipe; a new one is dispatched last
             ran_ba = self._async.ready()
             if ran_ba:
                 self._merge_inflight()
-            if added_kf and self._async.inflight is None:
-                self._async.dispatch(self.state.map)
+
+        # a failed frame may insert by the policy and again by
+        # relocalization: the runner hears of both
+        inserted = int(bool(o["added_kf"]))
+        if self._reloc is not None:
+            o = self._reloc_tick(o, args)
+            inserted += int(o.get("relocalized", False))
+
+        inflight = self._async.inflight if self._async is not None else None
+        if self._loop is not None:
+            if inserted:
+                self._loop.note_insertions(inserted)
+            self._state = self._loop.tick(self._state, self._frame, inflight)
+
+        if (self.ba_mode == "async" and o["added_kf"]
+                and self._async.inflight is None):
+            self._async.dispatch(self._state.map)
 
         T = pose_T(o["pose_q"], o["pose_t"])
         if bool(o["success"]) or self._frame == 0:
@@ -222,7 +290,7 @@ class SLAM:
         diag = dict(
             frame=self._frame,
             success=bool(o["success"]),
-            added_kf=added_kf,
+            added_kf=bool(o["added_kf"]),
             ran_ba=ran_ba,
             inlier_ratio=float(o["inlier_ratio"]),
             num_matches=int(o["num_matches"]),
@@ -234,15 +302,49 @@ class SLAM:
         self._frame += 1
         return diag
 
+    def _reloc_tick(self, o, frame_args) -> dict:
+        """After ``reloc_after`` failures in a row, try to re-anchor by
+        place recognition (loop/reloc.py). On success the frame is a new
+        keyframe and its recovered pose replaces the held one in this
+        frame's output. One host read per attempt."""
+        if o["success"]:
+            self._tracked_kf = int(o["anchor_id"]) + 1
+        if o["success"] or o["anchor_id"] < 0:   # tracking, or no map yet
+            self._fail_streak = 0
+            return o
+        self._fail_streak += 1
+        if self._fail_streak < self.config.loop.reloc_after:
+            return o
+        if self._async is not None and self._async.inflight is not None:
+            return o    # a pending merge would clobber the fresh anchor
+        self._state, r = self._reloc(self._state, *frame_args,
+                                     exclude_from_id=self._tracked_kf)
+        res = reloc_to_host(r, self._state.map)
+        if not res["success"]:
+            return o
+        self._fail_streak = 0
+        self._tracked_kf = res["num_kf"]
+        self.reloc_events.append(dict(
+            frame=self._frame, matched_id=res["matched_id"],
+            score=res["score"], inliers=res["inliers"]))
+        return dict(o, success=True, added_kf=True, relocalized=True,
+                    pose_q=res["pose_q"],
+                    pose_t=res["pose_t"], num_inliers=res["inliers"],
+                    anchor_id=res["num_kf"] - 1, anchor_q=res["pose_q"],
+                    anchor_t=res["pose_t"])
+
     def _merge_inflight(self):
-        merged, record = self._async.merge(self.state.map)
-        self.state = self.state._replace(map=merged)
+        merged, record = self._async.merge(self._state.map)
+        self._state = self._state._replace(map=merged)
         self.ba_stats.append(record)
 
     def finish(self):
-        """Wait for the solve in flight, if any, and merge it."""
+        """Wait for the solve in flight, if any, and merge it; then drain
+        the loop probes it was deferring."""
         if self._async is not None and self._async.inflight is not None:
             self._merge_inflight()
+        if self._loop is not None:
+            self._state = self._loop.tick(self._state, self._frame, None)
 
     def refined_trajectory(self) -> np.ndarray:
         """Frame poses re-expressed against the BA-refined keyframes

@@ -34,8 +34,20 @@ copied into the static input of a captured local-BA graph, replayed on
 a side stream); the result merges into the live map once its event has
 completed (at most one solve in flight).
 
-Culling, loop closure, relocalization and dense mapping are later slices
-of the port (ROADMAP.md) and raise ``NotImplementedError``.
+Keyframe culling, loop closure and relocalization run chunk-late, as in
+the reference: a drained insertion culls, merges a finished solve, ticks
+the loop runner (its probes deferred while a solve is in flight) and
+dispatches a new solve last. When the drained frames end in
+``reloc_after`` failures, ``feed`` drains the chunks in flight and
+probes the newest drained frame against the ring; a probe whose frame
+and map are unchanged since the last failed one is skipped (it would
+fail again), and only the last frame of each dispatched chunk is kept
+for it. On CUDA every map change made between replays (a cull, a merge,
+a loop correction, a relocalization insertion) is copied into the
+graph's static buffers (``assign_state``), so the next replay reads it.
+``graph=False`` runs full chunks through the same step eagerly (on the
+card too), the yardstick of the replayed path. Dense mapping is a later
+slice of the port (ROADMAP.md) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,9 +60,13 @@ from kbslam_torch.ba.local_ba import AsyncLocalBA
 from kbslam_torch.device import graph_capture
 from kbslam_torch.frontend.image import GRAY_WEIGHTS
 from kbslam_torch.geom.camera import Intrinsics
+from kbslam_torch.loop.reloc import make_reloc_step
+from kbslam_torch.loop.runner import LoopCloser
+from kbslam_torch.mapping.cull import make_cull
 from kbslam_torch.mapping.state import device_copy
 from kbslam_torch.pipeline import TrackOutput, TrackState, make_track_step
-from kbslam_torch.slam import OUTPUT_WIDTH, output_rows, row_to_fields
+from kbslam_torch.slam import (OUTPUT_WIDTH, output_rows, reloc_to_host,
+                               row_to_fields)
 
 
 def unpack_mask_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
@@ -106,10 +122,12 @@ def assign_state(dst: TrackState, src: TrackState) -> TrackState:
 
 class _Pending(NamedTuple):
     """One dispatched chunk: its real frame count, the host rows its
-    outputs land in, and the event after their copy (None on the CPU)."""
+    outputs land in, the event after their copy (None on the CPU), and
+    its last frame's host arrays when relocalization may need them."""
     n_real: int
     rows: torch.Tensor
     event: Optional[torch.cuda.Event]
+    last: Optional[list]
 
 
 class ChunkedStream:
@@ -122,16 +140,13 @@ class ChunkedStream:
 
     def __init__(self, cfg, intr: Intrinsics, state: TrackState,
                  chunk: int = 8, use_mask: bool = False, seed: int = 0,
-                 gray: bool = False, ba_mode: str = "off"):
+                 gray: bool = False, ba_mode: str = "off",
+                 graph: bool = True):
         if ba_mode not in ("off", "async"):
             raise ValueError(f"unknown ba_mode {ba_mode!r}")
-        for name, on in (("cull", cfg.cull.enabled),
-                         ("loop", cfg.loop.enabled),
-                         ("loop.reloc_after", cfg.loop.reloc_after > 0),
-                         ("dense", cfg.dense.enabled)):
-            if on:
-                raise NotImplementedError(
-                    f"config.{name} is not ported yet (ROADMAP.md)")
+        if cfg.dense.enabled:
+            raise NotImplementedError(
+                "config.dense is not ported yet (ROADMAP.md)")
         self.chunk = int(chunk)
         self.use_mask = use_mask
         self.gray = gray
@@ -159,6 +174,29 @@ class ChunkedStream:
         self._frame = 0
         self._async = (AsyncLocalBA(cfg.ba, intr) if ba_mode == "async"
                        else None)
+        self._graphed = graph
+        self._cull = make_cull(cfg.cull) if cfg.cull.enabled else None
+        lc = cfg.loop
+        # read once on the host: the runner and the fail streak count
+        # on from the insertions the given map already holds
+        num_kf = int(state.map.num_kf)
+        self._loop = (LoopCloser(cfg, intr, num_kf=num_kf) if lc.enabled
+                      else None)
+        self.loop_events: List[dict] = (
+            self._loop.events if self._loop is not None else [])
+        self._reloc = (make_reloc_step(
+            cfg, intr, use_mask=use_mask, word_bits=lc.word_bits,
+            score_min=lc.reloc_score_min, min_inliers=lc.reloc_min_inliers,
+            seed=seed) if lc.reloc_after > 0 else None)
+        self._reloc_after = lc.reloc_after
+        self.reloc_events: List[dict] = []
+        self._fail_streak = 0
+        self._kf_seen = num_kf     # insertions seen in drained frames
+        self._tracked_kf = num_kf  # insertions up to the last tracked frame
+        self._last_fed = None      # the newest fed frame's host arrays
+        self._probe_frame = None   # (index, arrays) of the newest drained
+        self._map_changes = 0      # host count of map changes
+        self._failed_probe = None  # (frame, map changes) of the last miss
 
     @property
     def state(self) -> TrackState:
@@ -208,6 +246,8 @@ class ChunkedStream:
         for buf, a in zip(self._staging[self._slot], arrays):
             buf[self._n_host].numpy()[...] = a
         self._n_host += 1
+        if self._reloc is not None:
+            self._last_fed = arrays
         if self._n_host == self.chunk:
             self._dispatch(self.chunk)
         # keep ONE chunk in flight: drain older results while the newest
@@ -216,6 +256,7 @@ class ChunkedStream:
         while len(self._inflight) > 1:
             added += self._collect(self._inflight.pop(0))
         self._kf_tick(added)
+        self._maybe_reloc()
         out, self._drained = self._drained, []
         return out
 
@@ -239,18 +280,20 @@ class ChunkedStream:
         CUDA, the eager step otherwise. Makes no host sync."""
         staged = self._staging[self._slot]
         rows_host = self._rows_host[self._rows_slot]
+        self._map_changes += 1
+        last = self._last_fed
         if not self._cuda:
             st, outs = self._run(self._state, *(b[:n] for b in staged))
             assign_state(self._state, st)
             rows_host[:n].copy_(output_rows(outs))
-            self._inflight.append(_Pending(n, rows_host, None))
+            self._inflight.append(_Pending(n, rows_host, None, last))
         else:
             for dst, src in zip(self._dev_in, staged):
                 dst[:n].copy_(src[:n], non_blocking=True)
             ev = torch.cuda.Event()
             ev.record()
             self._staged[self._slot] = ev
-            if n == self.chunk:
+            if n == self.chunk and self._graphed:
                 if self._graph is None:
                     self._capture()
                 self._graph.replay()
@@ -264,7 +307,7 @@ class ChunkedStream:
             rows_host[:n].copy_(rows, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-            self._inflight.append(_Pending(n, rows_host, done))
+            self._inflight.append(_Pending(n, rows_host, done, last))
         self._slot ^= 1
         self._rows_slot ^= 1
         self._n_host = 0
@@ -308,22 +351,95 @@ class ChunkedStream:
                      anchor_q=o["anchor_q"].copy(),
                      anchor_t=o["anchor_t"].copy())
             self._drained.append(d)
+            if d["success"]:
+                self._tracked_kf = d["anchor_id"] + 1
+            if self._reloc is not None:
+                if d["success"] or self._kf_seen == 0:
+                    self._fail_streak = 0
+                else:
+                    self._fail_streak += 1
+            self._kf_seen += d["added_kf"]
             added += d["added_kf"]
             self._frame += 1
+        if p.last is not None:
+            self._probe_frame = (self._frame - 1, p.last)
         return added
 
-    # --- chunk-late local BA ---------------------------------------------
+    # --- chunk-late keyframe work -----------------------------------------
     def _kf_tick(self, n_added: int, block: bool = False):
-        """Merge a finished solve (or, with block, wait for it), then
-        dispatch a new one if the drained frames inserted a keyframe.
-        ``n_added`` counts insertions among the DRAINED frames, never
-        read off the state of a chunk still in flight."""
+        """Cull, merge a finished solve (or, with block, wait for it), tick
+        the loop runner, then dispatch a new solve if the drained frames
+        inserted a keyframe. ``n_added`` counts insertions among the
+        DRAINED frames, never read off the state of a chunk in flight.
+        Each map change is copied into the stream's state tensors."""
         a = self._async
-        if a is None:
-            return
-        if a.inflight is not None and (block or a.ready()):
+        if n_added and self._cull is not None:
+            assign_state(self._state, self._state._replace(
+                map=self._cull(self._state.map)))
+            self._map_changes += 1
+        if a is not None and a.inflight is not None and (block or a.ready()):
             merged, record = a.merge(self._state.map)
             assign_state(self._state, self._state._replace(map=merged))
             self.ba_stats.append(record)
-        if n_added and a.inflight is None:
+            self._map_changes += 1
+        if self._loop is not None:
+            if n_added:
+                self._loop.note_insertions(n_added)
+            st = self._loop.tick(self._state, self._frame,
+                                 a.inflight if a is not None else None)
+            if st is not self._state:
+                assign_state(self._state, st)
+                self._map_changes += 1
+        if a is not None and n_added and a.inflight is None:
             a.dispatch(self._state.map)
+
+    def _maybe_reloc(self):
+        """Chunk-late relocalization: when the drained frames end in
+        ``reloc_after`` failures and no solve is in flight (its merge
+        would clobber the fresh anchor), drain the chunks in flight (one
+        may have recovered on its own) and probe the newest drained
+        frame, against the keyframes inserted up to the last tracked
+        frame. On success the frame is a new keyframe, reported to the
+        loop runner like any insertion."""
+        def waits():
+            return (self._fail_streak < self._reloc_after
+                    or (self._async is not None
+                        and self._async.inflight is not None))
+
+        if self._reloc is None or waits():
+            return
+        if self._inflight:
+            added = 0
+            while self._inflight:
+                added += self._collect(self._inflight.pop(0))
+            self._kf_tick(added)
+            if waits():
+                return
+        if self._probe_frame is None:
+            return
+        frame, arrays = self._probe_frame
+        if self._failed_probe == (frame, self._map_changes):
+            return      # the same frame on the same map: the same miss
+        dev = self.device
+        rgb, dep = (torch.from_numpy(a).to(dev) for a in arrays[:2])
+        mask = None
+        if self.use_mask:
+            mask = torch.from_numpy(arrays[2]).to(dev)
+            if self._packed_mask:
+                mask = unpack_mask_bits(mask, dep.shape[-1])
+        st, r = self._reloc(self._state, rgb, dep, mask,
+                            exclude_from_id=self._tracked_kf)
+        assign_state(self._state, st)
+        res = reloc_to_host(r, self._state.map)
+        if not res["success"]:
+            self._failed_probe = (frame, self._map_changes)
+            return
+        self._map_changes += 1
+        self._fail_streak = 0
+        self._kf_seen += 1
+        self._tracked_kf = res["num_kf"]
+        if self._loop is not None:
+            self._loop.note_insertions()
+        self.reloc_events.append(dict(
+            frame=frame, matched_id=res["matched_id"], score=res["score"],
+            inliers=res["inliers"]))

@@ -347,3 +347,92 @@ def test_capture_survives_a_dead_graph_in_a_cycle(cuda_device):
     for _ in range(50):
         ref = ref * 0.5 + 1.0
     assert torch.equal(y, ref)
+
+
+def test_chunked_correction_lands_in_the_static_buffers(cuda_device):
+    """A map change made between replays (here a loop runner that moves
+    every keyframe by 10 cm after the second chunk) must reach the next
+    replay: the captured chunk reads the stream's static buffers, so the
+    change is copied into them (``assign_state``). The replayed stream
+    equals the same stream run eagerly (``graph=False``) frame by frame,
+    and its state tensors are the same objects throughout."""
+    from kbslam_torch.streaming import ChunkedStream
+
+    seq = synthetic.render_sequence(num_frames=32, height=240, width=320)
+    cfg = _cfg240().replace(loop=dataclasses.replace(
+        _cfg240().loop, enabled=True))
+    intr = Intrinsics.from_matrix(seq.K)
+    runs = {}
+    for graph in (True, False):
+        cs = ChunkedStream(cfg, intr, init_state(cfg, cuda_device), chunk=8,
+                           graph=graph)
+        ptrs = [t.data_ptr() for t in cs.state.map]
+        moved = []
+
+        def tick(state, frame, inflight, cs=cs, moved=moved):
+            if frame >= 8 and not moved:
+                moved.append(cs.replays)
+                m = state.map
+                return state._replace(map=m._replace(kf_t=m.kf_t + 0.1))
+            return state
+
+        cs._loop.tick = tick
+        got = []
+        for i in range(32):
+            got += cs.feed(seq.rgb[i], seq.depth[i])
+        got += cs.flush()
+        assert [t.data_ptr() for t in cs.state.map] == ptrs
+        runs[graph] = (got, moved, cs.replays)
+    (g, moved, replays), (e, _, _) = runs[True], runs[False]
+    assert moved and moved[0] < replays          # a replay came after it
+    assert len(g) == len(e) == 32
+    for a, b in zip(g, e):
+        assert (a["success"], a["added_kf"], a["num_inliers"]) == (
+            b["success"], b["added_kf"], b["num_inliers"])
+        assert np.abs(a["pose_t"] - b["pose_t"]).max() <= 1e-5
+        assert np.abs(a["anchor_t"] - b["anchor_t"]).max() <= 1e-5
+
+
+def test_graphed_close_equals_the_eager_close(cuda_device):
+    """The loop close captured as one CUDA graph (``CapturedCall``, as
+    the runner replays it on the card) against the eager close on a
+    tracked map with a loop edge from the newest keyframe to the oldest,
+    its measured pose moved by 5 cm and 2 deg: equal bit for bit, and
+    within 1e-4 m of the close on the CPU."""
+    from kbslam_torch.device import CapturedCall
+    from kbslam_torch.geom.se3 import SE3
+    from kbslam_torch.loop.closure import close_loop
+
+    seq = synthetic.render_sequence(num_frames=16, height=240, width=320)
+    cfg = _cfg240().replace(policy=config.KeyframePolicyConfig(
+        min_frame_gap=3, rotation_threshold_deg=2.0))
+    slam = SLAM(cfg, seq.K, ba_mode="disabled", use_mask=False,
+                device=cuda_device)
+    track_all = [slam.process(seq.rgb[i], seq.depth[i]) for i in range(16)]
+    assert sum(d["added_kf"] for d in track_all) >= 4
+    m = slam.state.map
+    j = (slam.num_keyframes - 1) % m.capacity_kf
+    rel = SE3(m.kf_q[0], m.kf_t[0]).inverse().compose(SE3(m.kf_q[j],
+                                                          m.kf_t[j]))
+    nudge = SE3.exp(torch.tensor([0.05, 0, 0, 0, np.radians(2.0), 0],
+                                 dtype=torch.float32, device=cuda_device))
+    rel = nudge.compose(rel).normalize()
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    args = (torch.tensor(0, **i32), torch.tensor(j, **i32), rel.q, rel.t,
+            torch.tensor(True, device=cuda_device))
+    def close(*a):
+        return close_loop(*a[:5], loop_ok=a[5])
+
+    eager, eager_stats = close(m, *args)
+    got, stats = CapturedCall(close, m, *args)(m, *args)
+    torch.cuda.synchronize()
+    for name in ("kf_q", "kf_t", "mp_pos"):
+        assert torch.equal(getattr(got, name), getattr(eager, name))
+    for a, b in zip(stats, eager_stats):
+        assert torch.equal(a, b)
+    cpu = MapState(*(t.cpu() for t in m))
+    ref, _ = close_loop(cpu, *(a.cpu() for a in args[:4]),
+                        loop_ok=args[4].cpu())
+    assert float((got.kf_t.cpu() - ref.kf_t).abs().max()) < 1e-4
+    assert float((got.mp_pos.cpu() - ref.mp_pos).abs().max()) < 1e-4
+    assert float((got.kf_t.cpu() - cpu.kf_t).abs().max()) > 1e-3

@@ -74,8 +74,8 @@ def test_cli_chunked_checkpoint_and_resume(tmp_path, capsys):
 @pytest.mark.parametrize("args,message", [
     (["--chunk", "4"], "--chunk batches frames per dispatch"),
     (["--gray"], "--gray requires --chunk"),
-    (["--loop"], "loop closure"),
-    (["--reloc", "3"], "relocalization"),
+    (["--loop", "--dense"], "dense mapping"),
+    (["--global-ba"], "unrecognized arguments"),
     (["--dense"], "dense mapping"),
     (["--viewer", "rerun"], "viewer"),
     (["--source", "zmq"], "unknown --source"),
@@ -87,5 +87,18 @@ def test_cli_refuses_what_the_reference_refuses_or_is_not_ported(
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert message in err
-    if args[0] in ("--loop", "--reloc", "--dense", "--viewer"):
+    if message in ("dense mapping", "viewer"):
         assert "ROADMAP.md" in err
+
+
+@pytest.mark.parametrize("extra", [[], ["--chunk", "4", "--ba", "async"]])
+def test_cli_loop_reloc_cull(extra, capsys):
+    """--loop, --reloc N and --cull, per frame and chunked, as the
+    reference's CLI takes them: the summary gains loop_closures and
+    relocalizations (kbslam/cli.py:321-324, 516-519)."""
+    s = _main(capsys, "--loop", "--reloc", "2", "--cull", "--eval", *extra)
+    assert s["frames"] == 4 and s["success"] == 3
+    assert s["loop_closures"] == 0 and s["relocalizations"] == 0
+    assert "ate_rmse_m" in s
+    only_reloc = _main(capsys, "--reloc", "2", *extra)
+    assert "relocalizations" in only_reloc and "loop_closures" not in only_reloc

@@ -200,7 +200,10 @@ def test_port_imports_no_jax():
             "kbslam_torch.profile_step, kbslam_torch.ops.describe, "
             "kbslam_torch.ba.local_ba, kbslam_torch.ba.merge, "
             "kbslam_torch.streaming, kbslam_torch.io.checkpoint, "
-            "kbslam_torch.io.tum, kbslam_torch.io.native_loader; "
+            "kbslam_torch.io.tum, kbslam_torch.io.native_loader, "
+            "kbslam_torch.loop.pose_graph, kbslam_torch.loop.closure, "
+            "kbslam_torch.loop.detect, kbslam_torch.loop.runner, "
+            "kbslam_torch.loop.reloc, kbslam_torch.mapping.cull; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'kbslam' "
             "or m.startswith(('jax.', 'kbslam.'))]; "
             "ref = os.path.join(os.getcwd(), 'kbslam') + os.sep; "

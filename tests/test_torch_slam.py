@@ -104,3 +104,79 @@ def test_hard_scene_nk3_matches_reference(seed):
     assert len(t.ba_stats) >= 2
     assert ate_t < 0.09 and ref_t < 0.05 and ref_t <= ate_t + 1e-3, (
         ate_t, ref_t)
+
+
+def _order_cfg():
+    """test_streaming's 160x120 configuration (the port's copy) with
+    culling, loop closure and relocalization after one failure on."""
+    import dataclasses
+
+    from kbslam_torch import config as tconfig
+
+    cfg = tconfig.SLAMConfig(
+        image_height=120, image_width=160,
+        orb=tconfig.OrbConfig(num_features=256, num_levels=3,
+                              max_features=256),
+        pnp=tconfig.PnPConfig(num_hypotheses=64),
+        policy=tconfig.KeyframePolicyConfig(min_frame_gap=3),
+        map=tconfig.MapConfig(max_keyframes=8, max_map_points=4096))
+    return cfg.replace(
+        cull=dataclasses.replace(cfg.cull, enabled=True),
+        loop=dataclasses.replace(cfg.loop, enabled=True, reloc_after=1))
+
+
+STAGES = ["cull", "merge", "reloc", "loop", "dispatch"]
+
+
+def _record(log, shell, clock):
+    """Wrap the shell's cull, merge, reloc, loop tick and BA dispatch so
+    each call appends (stage, clock()) to ``log``."""
+    def wrap(name, fn):
+        def inner(*a, **k):
+            log.append((name, clock()))
+            return fn(*a, **k)
+        return inner
+
+    shell._cull = wrap("cull", shell._cull)
+    shell._reloc = wrap("reloc", shell._reloc)
+    shell._loop.tick = wrap("loop", shell._loop.tick)
+    shell._async.merge = wrap("merge", shell._async.merge)
+    shell._async.dispatch = wrap("dispatch", shell._async.dispatch)
+
+
+def _in_order(log):
+    """Per clock tick, the stages run in the reference's order."""
+    by_tick = {}
+    for name, tick in log:
+        by_tick.setdefault(tick, []).append(STAGES.index(name))
+    return all(v == sorted(v) for v in by_tick.values())
+
+
+def test_process_runs_cull_ba_reloc_loop_dispatch_in_order():
+    """kbslam/slam.py:255-354's order inside process: cull on insertion,
+    the merge of a finished solve, the relocalization tick, the loop tick
+    (its probes deferred while a solve is in flight), the new dispatch
+    last; finish() merges the last solve, then drains the loop queue.
+    A blank frame makes tracking fail, so relocalization runs."""
+    seq = render_sequence(num_frames=14, height=120, width=160,
+                          fx=525.0 * 160 / 640.0)
+    slam = TSLAM(_order_cfg(), seq.K, ba_mode="async", use_mask=False,
+                 device="cpu")
+    log = []
+    _record(log, slam, lambda: slam._frame)
+    for i in range(14):
+        rgb, dep = seq.rgb[i], seq.depth[i]
+        if i == 10:
+            rgb, dep = np.zeros_like(rgb), np.zeros_like(dep)
+        slam.process(rgb, dep)
+    names = {n for n, _ in log}
+    assert names == set(STAGES), names
+    assert _in_order(log), log
+    assert ("reloc", 10) in log
+    inserted = sum(d["added_kf"] for d in slam.diagnostics)
+    assert len([1 for n, _ in log if n == "cull"]) == inserted
+    assert slam._async.inflight is not None      # the last dispatch
+    slam.finish()
+    assert [n for n, _ in log[-2:]] == ["merge", "loop"]
+    assert slam._async.inflight is None and slam._loop._pending == []
+    assert slam._loop._num_insertions == slam.num_keyframes

@@ -24,10 +24,13 @@ from kbslam_torch.slam import SLAM
 REPO = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("extra", [[], ["--chunk", "4", "--ba", "off"]])
+@pytest.mark.parametrize("extra", [
+    [], ["--chunk", "4", "--ba", "off"],
+    ["--loop", "--reloc", "2", "--cull", "--chunk", "4", "--ba", "async"]])
 def test_package_alone_runs_its_cli(tmp_path, extra):
     """Per frame, and through the chunked executor (``--chunk 4``), which
-    also imports streaming, io.checkpoint and io.tum's neighbours."""
+    also imports streaming, io.checkpoint and io.tum's neighbours; and
+    with loop closure, relocalization and culling on."""
     shutil.copytree(REPO / "kbslam_torch", tmp_path / "kbslam_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

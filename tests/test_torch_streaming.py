@@ -361,17 +361,56 @@ def test_chunked_async_matches_reference():
 
 
 def test_unported_options_raise():
+    """Dense mapping raises naming ROADMAP, in both shells; culling, loop
+    closure and relocalization are ported and accepted."""
     import dataclasses
 
     seq_K = np.array([[200.0, 0, 80], [0, 200, 60], [0, 0, 1]])
     base = _tcfg()
-    for cfg in (base.replace(cull=dataclasses.replace(base.cull,
-                                                      enabled=True)),
-                base.replace(loop=dataclasses.replace(base.loop,
-                                                      enabled=True)),
-                base.replace(loop=dataclasses.replace(base.loop,
-                                                      reloc_after=3)),
-                base.replace(dense=dataclasses.replace(base.dense,
-                                                       enabled=True))):
+    dense = base.replace(dense=dataclasses.replace(base.dense, enabled=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TStream(dense, TIntr.from_matrix(seq_K), t_init(base, "cpu"))
+    for cfg in (dense, base.replace(dense_icp=dataclasses.replace(
+            base.dense_icp, mode="rescue"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TStream(cfg, TIntr.from_matrix(seq_K), t_init(base, "cpu"))
+            SLAM(cfg, seq_K, device="cpu")
+    ported = base.replace(cull=dataclasses.replace(base.cull, enabled=True),
+                          loop=dataclasses.replace(base.loop, enabled=True,
+                                                   reloc_after=3))
+    cs = TStream(ported, TIntr.from_matrix(seq_K), t_init(base, "cpu"))
+    assert cs._cull is not None and cs._loop is not None
+    assert cs._reloc is not None
+    slam = SLAM(ported, seq_K, device="cpu")
+    assert slam._cull is not None and slam._loop is not None
+    assert slam._reloc is not None
+
+
+def test_kf_tick_order_and_flush_drain():
+    """kbslam/streaming.py:467-501's order in a chunk-late keyframe tick
+    (cull, merge, loop tick, dispatch), and flush() merging the last
+    solve and draining the loop queue after the last merge
+    (kbslam/streaming.py:596-611)."""
+    from test_torch_slam import _in_order, _order_cfg, _record
+
+    seq = _seq(24)
+    cs = TStream(_order_cfg(), TIntr.from_matrix(seq.K),
+                 t_init(_order_cfg(), "cpu"), chunk=4, ba_mode="async")
+    log, ticks = [], [0]
+    _record(log, cs, lambda: ticks[0])
+    kf_tick = cs._kf_tick
+
+    def counted(*a, **k):       # the clock: one tick per _kf_tick call
+        ticks[0] += 1
+        return kf_tick(*a, **k)
+
+    cs._kf_tick = counted
+    for i in range(24):
+        cs.feed(seq.rgb[i], seq.depth[i])
+    cs.flush()
+    del cs._kf_tick
+    names = [n for n, _ in log]
+    assert {"cull", "merge", "loop", "dispatch"} <= set(names), names
+    assert _in_order(log), log
+    assert names[-1] == "loop" and "merge" in names[-3:]
+    assert cs._async.inflight is None and cs._loop._pending == []
+    assert cs._loop._num_insertions == int(cs.state.map.num_kf)
