@@ -13,11 +13,14 @@ same flags, validation errors and summary JSON keys:
 - ``--loop`` (loop closure), ``--reloc N`` (relocalization after N
   failures in a row) and ``--cull`` (keyframe culling), per frame and
   with ``--chunk``;
-- ``--mask``, ``--dist``, ``--save-trajectory``, ``--save-checkpoint``,
-  ``--resume`` and ``--eval``.
+- ``--dense`` (keyframe depth fused into the monolithic TSDF volume, per
+  frame and with ``--chunk``), ``--save-surface``, ``--save-mesh``;
+- ``--mask``, ``--dist``, ``--depth-edge-rel``, ``--save-trajectory``,
+  ``--save-checkpoint`` (with the volume), ``--resume`` (restores it) and
+  ``--eval``.
 
-``--viewer`` and ``--dense`` belong to later slices of the port
-(ROADMAP.md) and are refused; so is any other flag.
+``--viewer`` belongs to a later slice of the port (ROADMAP.md) and is
+refused; so is any other flag.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import time
 
 import numpy as np
 
-_LATER = {"viewer": "the Rerun viewer", "dense": "dense mapping (Slice E)"}
+_LATER = {"viewer": "the Rerun viewer"}
 
 
 def _frames(args, ap):
@@ -87,6 +90,45 @@ def _loop_summary(summary, args, shell):
         summary["relocalizations"] = len(shell.reloc_events)
 
 
+def _dense_summary(summary, args, shell, rc):
+    """The reference's summary fields of the dense volume (observed
+    voxels, surface points, ``render_consistency`` when ``rc``), and the
+    --save-surface / --save-mesh files."""
+    pts, _ = shell.dense_surface()
+    summary["tsdf_observed_voxels"] = int((shell.tsdf.weight > 0).sum())
+    summary["tsdf_surface_points"] = len(pts)
+    if rc is not None:
+        summary["render_consistency"] = rc
+    if args.save_surface:
+        np.save(args.save_surface, pts)
+    if args.save_mesh:
+        from kbslam_torch.mapping.mesh import save_ply, vertex_normals
+
+        mesh = shell.dense_mesh()
+        save_ply(args.save_mesh, mesh, vertex_normals(mesh))
+        summary["mesh_vertices"] = len(mesh.vertices)
+        summary["mesh_faces"] = len(mesh.faces)
+
+
+def _rc_meta(rc):
+    """render_consistency as checkpoint metadata."""
+    return {f"render_consistency_{k}": v for k, v in rc.items()} if rc else None
+
+
+def _resume_tsdf(args, cfg, shell):
+    """--resume with --dense: the saved volume, or a warning that the
+    volume restarts empty."""
+    from kbslam_torch.io.checkpoint import load_checkpoint_tsdf
+
+    tsdf = load_checkpoint_tsdf(args.resume, cfg, shell.device)
+    if tsdf is not None:
+        shell.tsdf = tsdf
+    else:
+        print("warning: checkpoint has no TSDF volume — the dense map "
+              "restarts empty and will only cover post-resume keyframes",
+              file=sys.stderr)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser("kbslam_torch")
     ap.add_argument("--source", default="synthetic",
@@ -128,7 +170,18 @@ def main(argv=None):
     ap.add_argument("--cull", action="store_true",
                     help="keyframe culling (disabled in the reference)")
     ap.add_argument("--viewer", choices=["rerun", "none"], default="none")
-    ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--dense", action="store_true",
+                    help="fuse keyframe depth into a dense TSDF volume (per "
+                    "frame and with --chunk, where fusion runs chunk-late)")
+    ap.add_argument("--save-surface", default=None, metavar="PATH.npy",
+                    help="write the TSDF zero-crossing point cloud "
+                    "(requires --dense)")
+    ap.add_argument("--save-mesh", default=None, metavar="PATH.ply",
+                    help="write the TSDF isosurface as a welded triangle "
+                    "mesh with vertex normals, binary PLY (requires --dense)")
+    ap.add_argument("--depth-edge-rel", type=float, default=0.0, metavar="R",
+                    help="range-aware rim-gate term: spread threshold = "
+                    "max(0.15, R*z^2); 0 = off")
     args = ap.parse_args(argv)
     for flag, what in _LATER.items():
         if getattr(args, flag) not in (False, 0, "none"):
@@ -145,6 +198,13 @@ def main(argv=None):
         cfg = cfg.replace(image_height=args.height, image_width=args.width)
     if args.cull:
         cfg = cfg.replace(cull=dataclasses.replace(cfg.cull, enabled=True))
+    if args.depth_edge_rel > 0:
+        cfg = cfg.replace(map=dataclasses.replace(
+            cfg.map, depth_edge_rel_per_m2=args.depth_edge_rel))
+    if args.dense or args.save_surface or args.save_mesh:
+        if not args.dense:
+            ap.error("--save-surface/--save-mesh require --dense")
+        cfg = cfg.replace(dense=dataclasses.replace(cfg.dense, enabled=True))
     if args.loop or args.reloc:
         cfg = cfg.replace(loop=dataclasses.replace(
             cfg.loop, enabled=bool(args.loop), reloc_after=args.reloc))
@@ -163,6 +223,8 @@ def main(argv=None):
         from kbslam_torch.io.checkpoint import load_checkpoint
 
         slam.state, _ = load_checkpoint(args.resume, cfg, slam.device)
+        if args.dense:
+            _resume_tsdf(args, cfg, slam)
     gts, n = [], 0
     for rgb, depth, mask, gt in frames:
         if n >= args.frames:
@@ -188,6 +250,10 @@ def main(argv=None):
         if n > 1 else None,
     )
     _loop_summary(summary, args, slam)
+    rc = None
+    if args.dense:
+        rc = slam.map_consistency()
+        _dense_summary(summary, args, slam, rc)
     if args.eval and len(gts) == n and n > 1:
         _evaluate(summary, est, gts, slam.refined_trajectory()
                   if mode != "disabled" else None)
@@ -195,7 +261,8 @@ def main(argv=None):
         from kbslam_torch.io.checkpoint import save_checkpoint
 
         save_checkpoint(args.save_checkpoint, slam.state,
-                        trajectory=slam.frame_poses)
+                        trajectory=slam.frame_poses, tsdf=slam.tsdf,
+                        meta=_rc_meta(rc))
     if args.save_trajectory:
         _save_trajectory(args.save_trajectory, est)
     print(json.dumps(summary))
@@ -223,6 +290,8 @@ def _run_chunked(args, cfg, K, frames, dist):
     cs = ChunkedStream(cfg, intr, state, chunk=args.chunk, gray=args.gray,
                        use_mask=args.mask, seed=args.seed,
                        ba_mode="async" if args.ba == "async" else "off")
+    if args.resume and args.dense:
+        _resume_tsdf(args, cfg, cs)
     results, gts, n = [], [], 0
     t0 = time.perf_counter()
     for rgb, depth, mask, gt in frames:
@@ -237,10 +306,12 @@ def _run_chunked(args, cfg, K, frames, dist):
 
     est = [pose_T(r["pose_q"], r["pose_t"]) for r in results]
     est = np.stack(est) if est else np.zeros((0, 4, 4))
+    rc = cs.map_consistency() if args.dense else None
     if args.save_checkpoint:
         from kbslam_torch.io.checkpoint import save_checkpoint
 
-        save_checkpoint(args.save_checkpoint, cs.state, trajectory=list(est))
+        save_checkpoint(args.save_checkpoint, cs.state, trajectory=list(est),
+                        tsdf=cs.tsdf, meta=_rc_meta(rc))
     summary = dict(
         frames=n,
         success=sum(r["success"] for r in results),
@@ -251,6 +322,8 @@ def _run_chunked(args, cfg, K, frames, dist):
         streaming_fps=round(n / wall, 1) if wall > 0 else None,
     )
     _loop_summary(summary, args, cs)
+    if args.dense:
+        _dense_summary(summary, args, cs, rc)
     if args.eval and len(gts) == n and n > 1:
         refined = None
         if cs.ba_stats:

@@ -7,13 +7,15 @@ on a device; ``to_numpy`` turns the port's state back into the same
 NamedTuples holding numpy arrays, which the JAX types accept field by
 field (``kbslam.mapping.state.MapState(**m._asdict())``).
 ``tuple_to_torch`` carries any other NamedTuple of arrays, such as the
-loop closure's ``PoseGraph``, ``LoopCandidate`` and ``LoopConstraint``.
+loop closure's ``PoseGraph``, ``LoopCandidate`` and ``LoopConstraint``;
+``tsdf_to_torch`` and ``tsdf_to_numpy`` carry the dense volume.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from kbslam_torch.mapping.dense import TSDFState
 from kbslam_torch.mapping.state import MapState
 from kbslam_torch.pipeline import TrackState
 
@@ -65,3 +67,16 @@ def to_numpy(state: TrackState) -> TrackState:
         frames_since_kf=state.frames_since_kf.detach().cpu().numpy().copy(),
         frame_count=state.frame_count.detach().cpu().numpy().copy(),
     )
+
+
+def tsdf_to_torch(state_np, device) -> TSDFState:
+    """A volume of arrays (a JAX ``TSDFState`` after ``jax.device_get``,
+    or a checkpoint's) as the port's, float32 copies on ``device``."""
+    return TSDFState(*(torch.from_numpy(np.array(a, np.float32)).to(device)
+                       for a in (state_np.tsdf, state_np.weight)))
+
+
+def tsdf_to_numpy(state: TSDFState) -> TSDFState:
+    """The port's volume as numpy arrays (copies), which the JAX
+    ``TSDFState`` and ``mapping/mesh.py`` accept."""
+    return TSDFState(*(a.detach().cpu().numpy().copy() for a in state))

@@ -1,4 +1,5 @@
-"""Device selection, float32 matmul precision and CUDA graph capture.
+"""Device selection, float32 matmul precision, host uploads and CUDA
+graph capture.
 
 The port runs on the card: without a device name, ``pick_device``
 returns the current CUDA device and raises when there is none. The CPU
@@ -15,6 +16,7 @@ import contextlib
 import gc
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -33,6 +35,17 @@ def pick_device(name: Optional[Union[str, torch.device]] = None
     if name is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """A copy of the host ``array`` on ``device``. On CUDA it goes through
+    a fresh pinned buffer with an asynchronous copy, so it makes no host
+    sync; PyTorch's pinned-memory cache keeps the buffer until the copy
+    has run."""
+    t = torch.from_numpy(np.array(array))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 @contextlib.contextmanager

@@ -4,12 +4,14 @@ Port of kbslam/io/checkpoint.py, with its npz layout, names and dtypes,
 so that either package loads the other's checkpoints: ``map.<field>``
 for every MapState field, ``track.{pose_q,pose_t,frames_since_kf,
 frame_count}``, an optional ``trajectory`` [N, 4, 4] and ``meta.<key>``
-float64 scalars. The file is written beside its path and published with
+float64 scalars, and with dense mapping the volume as ``tsdf.tsdf`` and
+``tsdf.weight``. The file is written beside its path and published with
 ``os.replace`` (atomic). Loading checks every map field's shape against
-the configuration and widens the integer fields as ``convert`` does.
+the configuration and widens the integer fields as ``convert`` does;
+``load_checkpoint_tsdf`` checks the volume's dims.
 
-The dense model (``tsdf``, ``atlas``) belongs to a later slice of the
-port (ROADMAP.md) and raises ``NotImplementedError``.
+The submap atlas (``atlas``) belongs to Slice E2 of the port
+(ROADMAP.md) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from kbslam_torch import convert
+from kbslam_torch.mapping.dense import TSDFState
 from kbslam_torch.mapping.state import MapState
 from kbslam_torch.pipeline import TrackState, init_state
 
@@ -29,17 +32,23 @@ def save_checkpoint(path: str, state: TrackState,
                     trajectory: Optional[List[np.ndarray]] = None,
                     tsdf=None, atlas=None, kf_insertions: int = 0,
                     meta: Optional[dict] = None) -> None:
-    """``meta``: a flat dict of scalar run metadata, stored as meta.*
-    entries and read back by ``load_checkpoint_meta``."""
-    if tsdf is not None or atlas is not None:
+    """``tsdf``: the dense volume (``mapping.dense.TSDFState``), saved so
+    that a dense run resumes with it. ``meta``: a flat dict of scalar run
+    metadata, stored as meta.* entries and read back by
+    ``load_checkpoint_meta``."""
+    if atlas is not None:
         raise NotImplementedError(
-            "dense-model checkpoints are not ported yet (ROADMAP.md)")
+            "submap atlas checkpoints belong to Slice E2 of the port "
+            "(ROADMAP.md)")
     host = convert.to_numpy(state)
     arrs = {f"map.{name}": val for name, val in host.map._asdict().items()}
     for name in _FIELDS_TRACK:
         arrs[f"track.{name}"] = np.asarray(getattr(host, name))
     if trajectory is not None and len(trajectory):
         arrs["trajectory"] = np.stack(trajectory)
+    if tsdf is not None:
+        vol = convert.tsdf_to_numpy(tsdf)
+        arrs["tsdf.tsdf"], arrs["tsdf.weight"] = vol.tsdf, vol.weight
     for k, v in (meta or {}).items():
         arrs[f"meta.{k}"] = np.float64(v)
     tmp = path + ".tmp.npz"  # savez appends .npz unless present
@@ -73,3 +82,16 @@ def load_checkpoint(path: str, cfg, device
     state = convert.to_torch(TrackState(map=MapState(**fields), **track),
                              device)
     return state, traj
+
+
+def load_checkpoint_tsdf(path: str, cfg, device) -> Optional[TSDFState]:
+    """The saved dense volume on ``device``, or None when the checkpoint
+    has none. Its dims must equal ``cfg.dense.dims``."""
+    with np.load(path) as z:
+        if "tsdf.tsdf" not in z.files:
+            return None
+        t, w = z["tsdf.tsdf"], z["tsdf.weight"]
+    if t.shape != tuple(cfg.dense.dims):
+        raise ValueError(f"checkpoint TSDF dims {t.shape} != config "
+                         f"{tuple(cfg.dense.dims)}")
+    return convert.tsdf_to_torch(TSDFState(t, w), device)

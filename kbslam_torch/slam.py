@@ -21,10 +21,12 @@ next poll.
 Keyframe culling (``config.cull``), loop closure (``config.loop.enabled``)
 and relocalization (``config.loop.reloc_after``) run in the reference's
 order inside ``process``: cull on insertion, then BA (or the merge of a
-finished asynchronous solve), the relocalization tick, the loop tick, and
-the asynchronous dispatch last, so a new solve sees the corrected map.
-Dense mapping is a later slice of the port (ROADMAP.md) and raises
-``NotImplementedError``.
+finished asynchronous solve), the relocalization tick, dense fusion of a
+keyframe's depth (``config.dense.enabled``, the monolithic TSDF volume of
+``mapping/dense.py``), the loop tick, and the asynchronous dispatch last,
+so a new solve sees the corrected map. The submap atlas
+(``dense.submap_every > 0``) and dense ICP belong to Slice E2 of the port
+(ROADMAP.md) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,10 +38,12 @@ import torch
 
 from kbslam_torch.ba.local_ba import (AsyncLocalBA, make_local_ba,
                                       stats_record, stats_vector)
-from kbslam_torch.device import pick_device
+from kbslam_torch.convert import tsdf_to_numpy
+from kbslam_torch.device import pick_device, upload
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.loop.reloc import make_reloc_step
 from kbslam_torch.loop.runner import LoopCloser
+from kbslam_torch.mapping import dense, mesh, raycast
 from kbslam_torch.mapping.cull import make_cull
 from kbslam_torch.pipeline import init_state, make_track_step
 
@@ -142,7 +146,97 @@ def map_point_positions(m) -> np.ndarray:
     return m.mp_pos.cpu().numpy()[slots] if len(slots) else np.zeros((0, 3))
 
 
-class SLAM:
+def check_dense_config(config):
+    """Raise on the dense options of later slices: the submap atlas and
+    dense ICP (Slice E2)."""
+    for name, on in (("dense.submap_every", config.dense.submap_every > 0),
+                     ("dense_icp", config.dense_icp.mode != "off")):
+        if on:
+            raise NotImplementedError(
+                f"config.{name} belongs to Slice E2 of the port (ROADMAP.md)")
+
+
+class DenseViews:
+    """The read side of the monolithic TSDF volume, shared by ``SLAM``
+    and ``streaming.ChunkedStream``. The shell sets ``tsdf`` (the
+    volume, or None with dense mapping off), ``dense_cfg``, ``intr``,
+    ``_image_hw``, ``_depth_scale`` and ``_last_kf_view`` (pose and host
+    depth of the newest fused keyframe)."""
+
+    def dense_surface(self) -> tuple:
+        """Zero-crossing point cloud of the volume: (points [M, 3] world,
+        |tsdf| residual [M]) (``mapping/dense.surface_points``)."""
+        if self.tsdf is None:
+            raise RuntimeError("dense mapping disabled "
+                               "(SLAMConfig.dense.enabled)")
+        return dense.surface_points(self.tsdf, self.dense_cfg)
+
+    def dense_mesh(self) -> mesh.TriangleMesh:
+        """The volume's zero isosurface as one welded triangle mesh
+        (``mapping/mesh.marching_tetrahedra``, host-side)."""
+        if self.tsdf is None:
+            raise RuntimeError("dense mapping disabled "
+                               "(SLAMConfig.dense.enabled)")
+        return mesh.marching_tetrahedra(tsdf_to_numpy(self.tsdf),
+                                        self.dense_cfg)
+
+    def _scaled_intr(self, stride: int):
+        """(intrinsics, height, width) of a render at every stride-th
+        pixel: pixel i of the small image is full-size pixel i*stride, so
+        (i*s - cx)/fx == (i - cx/s)/(fx/s) exactly; the distortion
+        coefficients act on normalized coordinates and stay."""
+        H, W = self._image_hw
+        if stride == 1:
+            return self.intr, H, W
+        i = self.intr
+        return (Intrinsics(i.fx / stride, i.fy / stride, i.cx / stride,
+                           i.cy / stride, i.dist), H // stride, W // stride)
+
+    def render_view(self, q=None, t=None, stride: int = 1):
+        """Raycast the volume from camera-to-world (q, t), by default the
+        newest fused keyframe's pose: a ``RaycastResult`` with world
+        normals on the volume's device, or None before the first fused
+        keyframe. Give both of q and t or neither. ``stride`` renders
+        every stride-th pixel (the full 640x480 render marches 20M
+        samples).
+
+        The monolithic volume is never re-warped by a loop correction,
+        so the pose a keyframe was fused at, which the default keeps, is
+        the pose to render it from; a re-posed model (the submap atlas)
+        would need the keyframe's current ring pose instead."""
+        if (q is None) != (t is None):
+            raise ValueError("render_view takes both q and t, or neither")
+        if q is None:
+            if self._last_kf_view is None:
+                return None
+            q, t, _ = self._last_kf_view
+        vol, pose, _ = raycast.resolve_render_model(self.tsdf, None, None,
+                                                    q, t)
+        if vol is None:
+            return None
+        intr_s, H, W = self._scaled_intr(stride)
+        return raycast.make_raycast(self.dense_cfg, intr_s, H, W)(
+            vol, pose.q, pose.t)
+
+    def map_consistency(self, stride: int = 2) -> Optional[dict]:
+        """Rendered against observed depth at the newest fused keyframe
+        (``mapping/raycast.render_consistency``): median and p90 error
+        and coverage, or None before the first fused keyframe."""
+        if self._last_kf_view is None:
+            return None
+        q, t, depth = self._last_kf_view
+        vol, pose, _ = raycast.resolve_render_model(self.tsdf, None, None,
+                                                    q, t)
+        if vol is None:
+            return None
+        intr_s, H, W = self._scaled_intr(stride)
+        depth_m = (np.asarray(depth, np.float32)[::stride, ::stride]
+                   * self._depth_scale)[:H, :W]
+        return raycast.render_consistency(vol, pose, depth_m, intr_s,
+                                          self.dense_cfg)
+
+
+class SLAM(DenseViews):
     """Stateful wrapper: feed RGB-D frames, read back trajectory and map."""
 
     def __init__(self, config, K: np.ndarray, ba_mode: str = "on_keyframe",
@@ -150,11 +244,7 @@ class SLAM:
                  device: Optional[torch.device] = None):
         if ba_mode not in ("on_keyframe", "async", "disabled"):
             raise ValueError(f"unknown ba_mode {ba_mode!r}")
-        for name, on in (("dense", config.dense.enabled),
-                         ("dense_icp", config.dense_icp.mode != "off")):
-            if on:
-                raise NotImplementedError(
-                    f"config.{name} is not ported yet (ROADMAP.md)")
+        check_dense_config(config)
         self.config = config
         self.device = pick_device(device)
         self.intr = Intrinsics.from_matrix(K, dist=dist)
@@ -189,6 +279,15 @@ class SLAM:
         self.frame_anchors: List[tuple] = []     # (anchor kf id, T_anchor)
         self.diagnostics: List[dict] = []
         self.ba_stats: List[dict] = []
+        self.dense_cfg = config.dense
+        self._image_hw = (config.image_height, config.image_width)
+        self._depth_scale = config.map.depth_scale
+        self._last_kf_view = None
+        self.tsdf, self._integrate = None, None
+        if config.dense.enabled:
+            self.tsdf = dense.empty_tsdf(config.dense, self.device)
+            self._integrate = dense.make_integrate(
+                config.dense, self.intr, config.map.depth_scale)
 
     @property
     def state(self):
@@ -270,6 +369,17 @@ class SLAM:
         if self._reloc is not None:
             o = self._reloc_tick(o, args)
             inserted += int(o.get("relocalized", False))
+
+        # dense fusion after the reloc tick (a relocalized frame is a
+        # keyframe at its recovered pose) and before the loop tick
+        if self._integrate is not None and o["added_kf"]:
+            dev = self.device
+            self.tsdf = self._integrate(
+                self.tsdf, args[1],
+                upload(np.asarray(o["pose_q"], np.float32), dev),
+                upload(np.asarray(o["pose_t"], np.float32), dev))
+            self._last_kf_view = (np.asarray(o["pose_q"]),
+                                  np.asarray(o["pose_t"]), depth)
 
         inflight = self._async.inflight if self._async is not None else None
         if self._loop is not None:

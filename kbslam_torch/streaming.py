@@ -46,8 +46,15 @@ for it. On CUDA every map change made between replays (a cull, a merge,
 a loop correction, a relocalization insertion) is copied into the
 graph's static buffers (``assign_state``), so the next replay reads it.
 ``graph=False`` runs full chunks through the same step eagerly (on the
-card too), the yardstick of the replayed path. Dense mapping is a later
-slice of the port (ROADMAP.md) and raises ``NotImplementedError``.
+card too), the yardstick of the replayed path.
+
+Dense mapping (``cfg.dense.enabled``, the monolithic TSDF volume) fuses
+chunk-late too: ``feed`` keeps each frame's host depth in a ring keyed by
+frame index, and each drained keyframe is fused at its drained pose, as
+is a keyframe that relocalization inserts; a drained frame leaves the
+ring. The depth and the pose go up through pinned memory, so fusion adds
+no host sync. The submap atlas and dense ICP (Slice E2) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -57,16 +64,17 @@ import numpy as np
 import torch
 
 from kbslam_torch.ba.local_ba import AsyncLocalBA
-from kbslam_torch.device import graph_capture
+from kbslam_torch.device import graph_capture, upload
 from kbslam_torch.frontend.image import GRAY_WEIGHTS
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.loop.reloc import make_reloc_step
 from kbslam_torch.loop.runner import LoopCloser
+from kbslam_torch.mapping import dense
 from kbslam_torch.mapping.cull import make_cull
 from kbslam_torch.mapping.state import device_copy
 from kbslam_torch.pipeline import TrackOutput, TrackState, make_track_step
-from kbslam_torch.slam import (OUTPUT_WIDTH, output_rows, reloc_to_host,
-                               row_to_fields)
+from kbslam_torch.slam import (OUTPUT_WIDTH, DenseViews, check_dense_config,
+                               output_rows, reloc_to_host, row_to_fields)
 
 
 def unpack_mask_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
@@ -130,13 +138,15 @@ class _Pending(NamedTuple):
     last: Optional[list]
 
 
-class ChunkedStream:
+class ChunkedStream(DenseViews):
     """Double-buffered chunked tracking over a host frame stream.
 
     ``feed`` takes one frame and returns the results drained so far;
     every C-th frame dispatches a chunk. ``flush`` runs the partial last
     chunk, drains everything and merges a solve in flight. ``state`` is
-    the live tracking state (on CUDA, the graph's static buffers)."""
+    the live tracking state (on CUDA, the graph's static buffers); with
+    dense mapping, ``tsdf`` is the volume and ``dense_surface``,
+    ``dense_mesh``, ``render_view`` and ``map_consistency`` read it."""
 
     def __init__(self, cfg, intr: Intrinsics, state: TrackState,
                  chunk: int = 8, use_mask: bool = False, seed: int = 0,
@@ -144,9 +154,7 @@ class ChunkedStream:
                  graph: bool = True):
         if ba_mode not in ("off", "async"):
             raise ValueError(f"unknown ba_mode {ba_mode!r}")
-        if cfg.dense.enabled:
-            raise NotImplementedError(
-                "config.dense is not ported yet (ROADMAP.md)")
+        check_dense_config(cfg)
         self.chunk = int(chunk)
         self.use_mask = use_mask
         self.gray = gray
@@ -197,6 +205,18 @@ class ChunkedStream:
         self._probe_frame = None   # (index, arrays) of the newest drained
         self._map_changes = 0      # host count of map changes
         self._failed_probe = None  # (frame, map changes) of the last miss
+        self.intr = intr
+        self.dense_cfg = cfg.dense
+        self._image_hw = (cfg.image_height, cfg.image_width)
+        self._depth_scale = cfg.map.depth_scale
+        self._last_kf_view = None  # (pose_q, pose_t, host depth)
+        self._fed = 0              # frames fed
+        self.tsdf = self._integrate = None
+        if cfg.dense.enabled:
+            self.tsdf = dense.empty_tsdf(cfg.dense, self.device)
+            self._integrate = dense.make_integrate(cfg.dense, intr,
+                                                   cfg.map.depth_scale)
+            self._depth_ring: dict = {}   # frame index -> host depth
 
     @property
     def state(self) -> TrackState:
@@ -238,6 +258,9 @@ class ChunkedStream:
     def feed(self, rgb, depth, mask=None) -> List[dict]:
         """Add one frame; returns any newly drained per-frame results."""
         arrays = self._host_frame(rgb, depth, mask)
+        if self._integrate is not None:
+            self._depth_ring[self._fed] = arrays[1]
+        self._fed += 1
         if self._staging is None:
             self._make_buffers(arrays)
         if self._n_host == 0 and self._staged[self._slot] is not None:
@@ -351,6 +374,10 @@ class ChunkedStream:
                      anchor_q=o["anchor_q"].copy(),
                      anchor_t=o["anchor_t"].copy())
             self._drained.append(d)
+            if self._integrate is not None:
+                depth = self._depth_ring.pop(self._frame)
+                if d["added_kf"]:
+                    self._fuse_kf(d["pose_q"], d["pose_t"], depth)
             if d["success"]:
                 self._tracked_kf = d["anchor_id"] + 1
             if self._reloc is not None:
@@ -364,6 +391,16 @@ class ChunkedStream:
         if p.last is not None:
             self._probe_frame = (self._frame - 1, p.last)
         return added
+
+    def _fuse_kf(self, q, t, depth):
+        """Fuse one keyframe's host depth into the volume at the host pose
+        (q, t); uploads through pinned memory, so no host sync."""
+        dev = self.device
+        self.tsdf = self._integrate(
+            self.tsdf, upload(depth, dev),
+            upload(np.asarray(q, np.float32), dev),
+            upload(np.asarray(t, np.float32), dev))
+        self._last_kf_view = (np.asarray(q), np.asarray(t), depth)
 
     # --- chunk-late keyframe work -----------------------------------------
     def _kf_tick(self, n_added: int, block: bool = False):
@@ -438,6 +475,10 @@ class ChunkedStream:
         self._fail_streak = 0
         self._kf_seen += 1
         self._tracked_kf = res["num_kf"]
+        if self._integrate is not None:
+            # the relocalized frame is a keyframe: its depth joins the
+            # volume like any drained insertion's
+            self._fuse_kf(res["pose_q"], res["pose_t"], arrays[1])
         if self._loop is not None:
             self._loop.note_insertions()
         self.reloc_events.append(dict(

@@ -1,6 +1,7 @@
 """The port's own copies of the reference's numpy-only modules equal the
 originals: ``kbslam_torch/config.py``, ``io/synthetic.py``,
-``eval/trajectory.py``, ``io/tum.py``, ``io/native_loader.py`` and
+``eval/trajectory.py``, ``io/tum.py``, ``io/native_loader.py``,
+``mapping/mesh.py`` and
 ``frontend/brief_pattern_learned.npy``.
 
 This is the one place both are imported. The copies differ from the
@@ -27,7 +28,8 @@ COPIES = [("kbslam/config.py", "kbslam_torch/config.py"),
           ("kbslam/io/synthetic.py", "kbslam_torch/io/synthetic.py"),
           ("kbslam/eval/trajectory.py", "kbslam_torch/eval/trajectory.py"),
           ("kbslam/io/tum.py", "kbslam_torch/io/tum.py"),
-          ("kbslam/io/native_loader.py", "kbslam_torch/io/native_loader.py")]
+          ("kbslam/io/native_loader.py", "kbslam_torch/io/native_loader.py"),
+          ("kbslam/mapping/mesh.py", "kbslam_torch/mapping/mesh.py")]
 
 
 def _body(path: Path) -> str:

@@ -74,9 +74,12 @@ def test_cli_chunked_checkpoint_and_resume(tmp_path, capsys):
 @pytest.mark.parametrize("args,message", [
     (["--chunk", "4"], "--chunk batches frames per dispatch"),
     (["--gray"], "--gray requires --chunk"),
-    (["--loop", "--dense"], "dense mapping"),
+    # --dense is ported: what it still refuses keeps these cases' names
+    pytest.param(["--loop", "--save-surface", "s.npy"], "require --dense",
+                 id="args2-dense mapping"),
     (["--global-ba"], "unrecognized arguments"),
-    (["--dense"], "dense mapping"),
+    pytest.param(["--save-mesh", "m.ply"], "require --dense",
+                 id="args4-dense mapping"),
     (["--viewer", "rerun"], "viewer"),
     (["--source", "zmq"], "unknown --source"),
 ])
@@ -87,7 +90,7 @@ def test_cli_refuses_what_the_reference_refuses_or_is_not_ported(
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert message in err
-    if message in ("dense mapping", "viewer"):
+    if message == "viewer":
         assert "ROADMAP.md" in err
 
 

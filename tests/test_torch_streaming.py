@@ -361,19 +361,26 @@ def test_chunked_async_matches_reference():
 
 
 def test_unported_options_raise():
-    """Dense mapping raises naming ROADMAP, in both shells; culling, loop
-    closure and relocalization are ported and accepted."""
+    """The submap atlas and dense ICP raise naming ROADMAP, in both
+    shells; the monolithic volume, culling, loop closure and
+    relocalization are ported and accepted."""
     import dataclasses
 
     seq_K = np.array([[200.0, 0, 80], [0, 200, 60], [0, 0, 1]])
     base = _tcfg()
     dense = base.replace(dense=dataclasses.replace(base.dense, enabled=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TStream(dense, TIntr.from_matrix(seq_K), t_init(base, "cpu"))
-    for cfg in (dense, base.replace(dense_icp=dataclasses.replace(
-            base.dense_icp, mode="rescue"))):
+    atlas = dense.replace(dense=dataclasses.replace(dense.dense,
+                                                    submap_every=2))
+    icp = dense.replace(dense_icp=dataclasses.replace(base.dense_icp,
+                                                      mode="rescue"))
+    for cfg in (atlas, icp):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TStream(cfg, TIntr.from_matrix(seq_K), t_init(base, "cpu"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SLAM(cfg, seq_K, device="cpu")
+    assert TStream(dense, TIntr.from_matrix(seq_K),
+                   t_init(base, "cpu")).tsdf is not None
+    assert SLAM(dense, seq_K, device="cpu").tsdf is not None
     ported = base.replace(cull=dataclasses.replace(base.cull, enabled=True),
                           loop=dataclasses.replace(base.loop, enabled=True,
                                                    reloc_after=3))
