@@ -125,12 +125,33 @@ non-zero):
                 round trip); ``ChunkedStream`` (chunk 8, BA off) against
                 per-frame ``SLAM``, both dense (the same volume, the depth
                 ring drained, no host sync in a dispatch or a fusion); the
-                volume through a checkpoint, bit-equal.
-The dense stages are plain torch, not kernels of the kernels line.
-Then one JSON line about the kernels, the nvidia-smi line, and the
-result line. The describe kernel's launch count sums phases 5, 7 and
-10, the relocalization attempts of phase 14 and phase 16's dense SLAM
-run. In phase 10 the
+                volume through a checkpoint, bit-equal;
+ 17. submaps  — the submap atlas and dense ICP at ``SLAMConfig()``'s
+                ``DenseMapConfig`` with 16 submaps (37.7 MB) and 640x480:
+                ``start_submap`` and ``integrate_active`` on the card
+                against the CPU by phase 16's voxel rule;
+                ``align_depth_to_tsdf`` and ``align_depth_to_atlas`` (K = 3)
+                on one frame of the plane from a perturbed pose (stride 4,
+                8 trips), card against CPU (decisions equal, pose within
+                0.1 mm and 0.01 deg, rmse within 1e-6 m, ``num_valid``
+                within 0.5%), 0 host syncs in a solve, each timed by a CUDA
+                graph with launches, peak memory and bound; ``SLAM`` with
+                BA on keyframe and a submap every 2 insertions over the 60
+                frames ((insertions + 1) // 2 submaps, surface on the
+                plane, map consistency, a mesh); ``ChunkedStream`` (chunk
+                8, BA off) against per-frame ``SLAM`` with the atlas (the
+                same atlas to the bit, the ring drained, no host sync in a
+                dispatch or in a fusion of either shell); the atlas through
+                a checkpoint, bit-equal; the dense ICP rescue through the
+                mask blackout of tests/test_dense_icp.py:118-163 at its
+                320x240 and at 640x480 with ``SLAMConfig()``'s ORB and map,
+                with the volume and with the atlas, held to that test's
+                gates; one ``dense_icp="refine"`` pass over the 60 frames.
+The dense stages, the atlas and the aligners are plain torch, not
+kernels of the kernels line. Then one JSON line about the kernels, the
+nvidia-smi line, and the result line. The describe kernel's launch count
+sums phases 5, 7 and 10, the relocalization attempts of phase 14, phase
+16's dense SLAM run and phase 17's atlas SLAM run. In phase 10 the
 wrapper's counter counts the eager calls (the warm-up before the capture
 and the tail; a call inside the capture launches nothing and is not
 counted), and the graph's replays, which no Python runs, add the
@@ -1340,13 +1361,14 @@ def _peak_gb(fn):
     return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
-def dense_phase(dev, seq, smi) -> int:
+def dense_phase(dev, seq, smi, pace) -> int:
     """(16) The monolithic TSDF volume at SLAMConfig()'s DenseMapConfig
     (96x96x32 voxels) and 640x480: integrate and raycast on the card
     against the CPU, timed beside their bounds; SLAM with BA on keyframe
     and dense fusion; ChunkedStream (chunk 8, BA off) against per-frame
     SLAM; a checkpoint of the volume. Returns the describe launches of
-    the dense SLAM run."""
+    the dense SLAM run, and keeps its median ms of keyframe frames in
+    ``pace``."""
     import dataclasses
     import tempfile
 
@@ -1476,6 +1498,7 @@ def dense_phase(dev, seq, smi) -> int:
                              f"|z| {np.median(err)}, consistency {mc}")
     kf_ms = [d["wall_ms"] for d in slam.diagnostics[1:] if d["added_kf"]]
     other_ms = [d["wall_ms"] for d in slam.diagnostics[1:] if not d["added_kf"]]
+    pace["dense_kf_ms"] = float(np.median(kf_ms))
     t0 = time.perf_counter()
     m = slam.dense_mesh()
     mesh_ms = (time.perf_counter() - t0) * 1e3
@@ -1525,7 +1548,8 @@ def dense_phase(dev, seq, smi) -> int:
             f"{per_frame.num_keyframes} keyframes")
     t_gap = float((cs.tsdf.tsdf - per_frame.tsdf.tsdf).abs().max())
     sites = sync_sites(lambda: cs._fuse_kf(got_c[0]["pose_q"],
-                                           got_c[0]["pose_t"], seq.depth[0]))
+                                           got_c[0]["pose_t"], seq.depth[0],
+                                           0))
 
     # 5. the chunked run's volume through a checkpoint
     with tempfile.TemporaryDirectory() as tmp:
@@ -1543,6 +1567,377 @@ def dense_phase(dev, seq, smi) -> int:
           f"fusion with every sync counted: {dict(sites)}); the volume saved "
           f"and loaded bit-equal; {smi}", flush=True)
     return dense_launches
+
+
+ICP_DELTA = (0.025, -0.02, 0.02, 0.012, -0.015, 0.010)  # test_dense_icp.py
+ICP_POSE_M = 1e-4        # card vs CPU: tests/test_torch_icp.py's tolerances
+ICP_POSE_DEG = 0.01
+ICP_RMSE_M = 1e-6
+ICP_VALID_SHARE = 0.005
+
+
+def _icp_gap(r_dev, r_cpu, icp):
+    """The card's ICP result against the CPU's: (translation m, angle deg,
+    largest rmse gap m, num_valid share gap, both accepted as rescue and
+    as refine); raises when a tolerance or a decision differs."""
+    from kbslam_torch.slam import pose_T
+
+    a, b = ({k: np.asarray(v.cpu()) for k, v in r._asdict().items()}
+            for r in (r_dev, r_cpu))
+    dT = np.linalg.inv(pose_T(b["q"], b["t"])) @ pose_T(a["q"], a["t"])
+    dt = float(np.linalg.norm(dT[:3, 3]))
+    dr = float(np.degrees(np.arccos(np.clip((np.trace(dT[:3, :3]) - 1) / 2,
+                                            -1, 1))))
+    drm = max(abs(float(a[k]) - float(b[k])) for k in ("rmse_init", "rmse"))
+    dn = abs(int(a["num_valid"]) - int(b["num_valid"])) / max(
+        int(b["num_valid"]), 1)
+
+    def accepted(r, refine):
+        ok = (int(r["num_valid"]) >= icp.min_points
+              and float(r["rmse"]) <= icp.accept_rmse_m
+              and float(r["rmse"]) <= float(r["rmse_init"]))
+        return ok and (not refine or float(r["rmse"]) < float(r["rmse_init"]))
+
+    dec = [(accepted(a, f), accepted(b, f)) for f in (False, True)]
+    if not (dt <= ICP_POSE_M and dr <= ICP_POSE_DEG and drm <= ICP_RMSE_M
+            and dn <= ICP_VALID_SHARE and all(x == y for x, y in dec)):
+        raise AssertionError(f"ICP card != CPU: {dt} m, {dr} deg, rmse gap "
+                             f"{drm}, num_valid gap {dn}, decisions {dec}, "
+                             f"card {a}, CPU {b}")
+    return dt, dr, drm, dn, dec[0][0]
+
+
+def _blackout(height, width, cfg, mode, submap_every, dev, T=34):
+    """The mask blackout of tests/test_dense_icp.py:118-163 (frames 16-21
+    fully masked) at height x width on the spheres, BA on keyframe:
+    the shell after it, the blackout frames, the sequence."""
+    import dataclasses
+
+    from kbslam_torch.io import synthetic
+    from kbslam_torch.slam import SLAM
+
+    seq = synthetic.render_sequence(num_frames=T, height=height, width=width,
+                                    scene="spheres")
+    mask = seq.mask.copy()
+    black = list(range(16, 22))
+    mask[black] = 0
+    cfg = cfg.replace(dense=dataclasses.replace(
+        cfg.dense, enabled=True, submap_every=submap_every),
+        dense_icp=dataclasses.replace(cfg.dense_icp, mode=mode))
+    slam = SLAM(cfg, seq.K, ba_mode="on_keyframe", use_mask=True, device=dev)
+    for i in range(T):
+        slam.process(seq.rgb[i], seq.depth[i], mask[i])
+    return slam, black, seq
+
+
+def _rescue_gates(slam, black, seq, gate_m, what):
+    """tests/test_dense_icp.py's rescue gates; returns (accepted rescues,
+    median ms of rescue frames, of tracked frames, worst error m)."""
+    rescued = [e["frame"] for e in slam.icp_events
+               if e["mode"] == "rescue" and e["accepted"]]
+    n_ok = sum(slam.diagnostics[i]["success"] for i in black)
+    T0 = seq.poses[0]
+    errs = [float(np.linalg.norm((T0 @ slam.frame_poses[i])[:3, 3]
+                                 - seq.poses[i][:3, 3]))
+            for i in black if slam.diagnostics[i]["success"]]
+    if not (len(rescued) >= 4 and n_ok >= 4 and max(errs) < gate_m
+            and slam.diagnostics[-1]["success"]):
+        raise AssertionError(f"{what}: rescues {rescued}, {n_ok} blackout "
+                             f"successes, errors {errs} (gate {gate_m} m), "
+                             f"last frame {slam.diagnostics[-1]}")
+    d = slam.diagnostics
+    tracked = [x["wall_ms"] for x in d[1:] if x["frame"] not in black
+               and x["success"] and not x["added_kf"]]
+    return (len(rescued), float(np.median([d[i]["wall_ms"] for i in rescued])),
+            float(np.median(tracked)), max(errs))
+
+
+def submap_phase(dev, seq, smi, pace) -> int:
+    """(17) The submap atlas and dense ICP at SLAMConfig()'s
+    DenseMapConfig (96x96x32 voxels) with 16 submaps and 640x480:
+    start_submap and integrate_active on the card against the CPU; the
+    two aligners on the card against the CPU, timed beside their bounds;
+    SLAM with the atlas and BA on keyframe; ChunkedStream (chunk 8, BA
+    off) with the atlas against per-frame SLAM; the atlas through a
+    checkpoint; the dense ICP rescue through a mask blackout at 320x240
+    and at 640x480, and one refine pass. Returns the describe launches of
+    the atlas SLAM run."""
+    import dataclasses
+    import tempfile
+
+    from kbslam_torch import config, convert
+    from kbslam_torch.config import DenseIcpConfig
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.geom.se3 import SE3
+    from kbslam_torch.io.checkpoint import (load_checkpoint_atlas,
+                                            save_checkpoint)
+    from kbslam_torch.mapping import dense, icp, submap
+    from kbslam_torch.ops import describe as describe_ops
+    from kbslam_torch.pipeline import init_state
+    from kbslam_torch.slam import SLAM
+    from kbslam_torch.streaming import ChunkedStream
+
+    base = config.SLAMConfig()
+    cfg = base.replace(dense=dataclasses.replace(
+        base.dense, enabled=True, submap_every=2))
+    dcfg, scale = cfg.dense, cfg.map.depth_scale
+    S = dcfg.max_submaps
+    intr = Intrinsics.from_matrix(seq.K)
+    H, W = seq.depth.shape[1:]
+    V = int(np.prod(dcfg.dims))
+    cpu = torch.device("cpu")
+    P0 = np.linalg.inv(seq.poses[0])     # the SLAM gauge: camera 0
+    poses = {i: P0 @ seq.poses[i] for i in range(FRAMES)}
+
+    def qt(T, device):
+        return [torch.from_numpy(a).to(device) for a in _pose_qt(T)]
+
+    def depth(i, device):
+        return torch.from_numpy(seq.depth[i].astype(np.int32)).to(device)
+
+    # 1. the atlas module: submaps anchored at frames 0, 20 and 40, each
+    # fusing its anchor frame and the fifth after it on the CPU; then
+    # frame 50 into the third on the card and on the CPU
+    start, fuse = submap.make_submap_ops(dcfg, intr, S, scale)
+    atlas = submap.empty_atlas(dcfg, S, cpu)
+    for a in (0, 20, 40):
+        atlas = start(atlas, *qt(poses[a], cpu), a // 2)
+        for i in (a, a + 5):
+            atlas = fuse(atlas, depth(i, cpu), *qt(poses[i], cpu),
+                         *qt(poses[a], cpu))
+
+    def on(device):
+        return convert.atlas_to_torch(convert.atlas_to_numpy(atlas), device)
+
+    atlas_d, atlas_t = on(dev), on(dev)      # atlas_t: for the timing
+    args_d = (depth(50, dev), *qt(poses[50], dev), *qt(poses[40], dev))
+    got = fuse(on(dev), *args_d)
+    ref = fuse(on(cpu), depth(50, cpu), *qt(poses[50], cpu),
+               *qt(poses[40], cpu))
+    torch.cuda.synchronize()
+    s = got.active_slot()
+    w_eq = (got.weight[s].cpu() == ref.weight[s]).numpy().reshape(-1)
+    t_ok = ((got.tsdf[s].cpu() - ref.tsdf[s]).abs()
+            <= DENSE_TOL).numpy().reshape(-1)
+    agree = w_eq & t_ok
+    away = ~_near_round_edge(dcfg, intr, *_pose_qt(np.linalg.inv(poses[40])
+                                                   @ poses[50]))
+    others = [k for k in range(S) if k != s]
+    same_rest = (all(torch.equal(x.cpu(), y) for x, y in zip(got[2:5],
+                                                             ref[2:5]))
+                 and all(torch.equal(x[others].cpu(), y[others])
+                         for x, y in zip(got[:2], ref[:2])))
+    if not (agree[away].all() and agree.mean() >= DENSE_AGREE and same_rest
+            and got.count == ref.count == 3):
+        raise AssertionError(
+            f"integrate_active card != CPU: {int((~agree).sum())} voxels of "
+            f"{V} disagree, {int((~agree & away).sum())} away from an edge, "
+            f"other slots and anchors equal: {same_rest}")
+    st_d = start(submap.empty_atlas(dcfg, S, dev), *qt(poses[0], dev), 0)
+    st_c = start(submap.empty_atlas(dcfg, S, cpu), *qt(poses[0], cpu), 0)
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(st_d[:5], st_c[:5])):
+        raise AssertionError("start_submap card != CPU")
+    in_ms = cuda_ms(lambda: fuse(atlas_t, *args_d))
+    in_launches = _launches(lambda: fuse(atlas_t, *args_d))
+    in_peak = _peak_gb(lambda: fuse(atlas_t, *args_d))
+    st_ms = cuda_ms(lambda: start(atlas_t, *args_d[1:3], 0))
+    in_bytes = 4 * V * 4 + H * W * 4    # the slot read and written; depth
+    in_bound, in_by = bound(in_bytes, 50.0 * V)
+    pace["integrate_active"] = (in_ms, in_launches, in_peak, in_bound, in_by)
+    print(f"[submaps] atlas of {S} x {dcfg.dims} ({2 * S * V * 4 / 1e6:.1f} "
+          f"MB): start_submap card equal to the CPU; integrate_active of a "
+          f"640x480 frame into submap 3 equal on {agree.mean():.6f} of the "
+          f"slot's voxels (weights equal, tsdf within {DENSE_TOL}), on all "
+          f"{int(away.sum())} away from a .5 rounding edge, other slots and "
+          f"anchors bit-equal; integrate_active device {in_ms:.4f} ms (CUDA "
+          f"graph of 20 calls), {in_launches} launches per call, peak "
+          f"{in_peak:.4f} GB, bound {in_bound * 1e3:.2f} us by {in_by} "
+          f"({in_bytes} bytes), at {in_bound / in_ms:.1%} of it; "
+          f"start_submap {st_ms:.4f} ms; {smi}", flush=True)
+
+    # 2. the aligners on frame 25 from a perturbed pose, 8 trips at
+    # stride 4, against a volume of frames 0-50 (every tenth) and the
+    # three submaps above
+    icfg = DenseIcpConfig(stride=4, iters=8, atlas_slots=3)
+    vol = dense.empty_tsdf(dcfg, cpu)
+    integ = dense.make_integrate(dcfg, intr, scale)
+    for i in range(0, FRAMES, 10):
+        vol = integ(vol, depth(i, cpu), *qt(poses[i], cpu))
+    delta = SE3.exp(torch.tensor(ICP_DELTA, dtype=torch.float64)).matrix()
+    q0c, t0c = qt(delta.numpy() @ poses[25], cpu)
+    q0d, t0d = q0c.to(dev), t0c.to(dev)
+    vol_d = convert.tsdf_to_torch(convert.tsdf_to_numpy(vol), dev)
+    mono = icp.make_icp(dcfg, icfg, intr, scale)
+    win = submap.recent_slots_with_poses(
+        atlas, init_state(base, cpu).map, 3)         # no ring: stored poses
+    win_c = [torch.from_numpy(a) for a in win]
+    win_d = [a.to(dev) for a in win_c]
+    many = icp.make_icp_atlas(dcfg, icfg, intr, scale)
+    P = (H // 4) * (W // 4)
+    d_c, d_d = depth(25, cpu), depth(25, dev)
+    atlas_c = on(cpu)
+    rows = []
+    for name, fn_d, fn_c, K in (
+            ("align_depth_to_tsdf", lambda: mono(vol_d, d_d, q0d, t0d),
+             lambda: mono(vol, d_c, q0c, t0c), 1),
+            ("align_depth_to_atlas",
+             lambda: many(atlas_d, *win_d, d_d, q0d, t0d),
+             lambda: many(atlas_c, *win_c, d_c, q0c, t0c), 3)):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r_d = fn_d()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        gap = _icp_gap(r_d, fn_c(), icfg)
+        ms = cuda_ms(fn_d)
+        launches = _launches(fn_d)
+        peak = _peak_gb(fn_d)
+        # bytes: each slot's tsdf and weight read once, the strided depth
+        # pixels; operations: per point, slot and fetch ~150 flop
+        # (transform, trilinear value and gradient, selection), and per
+        # point and trip ~100 (Jacobian, normal equations)
+        nbytes = K * V * 8 + P * 4
+        flops = P * ((icfg.iters + 1) * 150.0 * K + icfg.iters * 100.0)
+        b, by = bound(nbytes, flops)
+        rows.append((name, K, round(ms, 4), launches, round(peak, 4),
+                     round(b * 1e3, 2), by, f"{b / ms:.2%}",
+                     int(r_d.num_valid), round(float(r_d.rmse_init), 5),
+                     round(float(r_d.rmse), 5), gap[4],
+                     f"{gap[0]:.1e} m", f"{gap[1]:.1e} deg"))
+    pace["icp_rows"] = rows
+    print(f"[submaps] aligners on one 640x480 frame ({P} points, stride 4, "
+          f"{icfg.iters} trips, perturbed by tests/test_dense_icp.py's "
+          f"delta), 0 host syncs inside a solve (sync debug mode 'error'), "
+          f"card against the CPU within {ICP_POSE_M} m, {ICP_POSE_DEG} deg, "
+          f"rmse {ICP_RMSE_M} m, num_valid {ICP_VALID_SHARE:.1%}, decisions "
+          f"equal; (name, slots, device ms by CUDA graph of 20 calls, "
+          f"launches per call, peak GB, bound us, bound by, share of bound, "
+          f"num_valid, rmse_init, rmse, accepted, pose gap card-CPU): "
+          f"{rows}; {smi}", flush=True)
+
+    # 3. SLAM with the atlas and BA on keyframe (the main path of this
+    # phase: the describe kernel once per frame)
+    describe_ops.reset_launches()
+    slam = track(SLAM(cfg, seq.K, device=dev), seq)
+    sub_launches = describe_ops.launches
+    n_ins = sum(d["added_kf"] for d in slam.diagnostics)
+    pts, _ = slam.dense_surface()
+    T0 = seq.poses[0]
+    err = np.abs((pts @ T0[:3, :3].T + T0[:3, 3])[:, 2])
+    mc = slam.map_consistency()
+    m = slam.dense_mesh()
+    if not (sub_launches == FRAMES and slam.atlas.count == (n_ins + 1) // 2
+            and len(pts) > 1000 and np.median(err) < 0.02 and mc is not None
+            and mc["coverage"] > 0.3 and mc["median_err_m"] < dcfg.voxel_size
+            and len(m.faces) > 0):
+        raise AssertionError(
+            f"atlas SLAM: describe launches {sub_launches}, {slam.atlas.count}"
+            f" submaps for {n_ins} insertions, {len(pts)} surface points, "
+            f"median |z| {np.median(err)}, consistency {mc}, {len(m.faces)} "
+            f"faces")
+    kf_ms = [d["wall_ms"] for d in slam.diagnostics[1:] if d["added_kf"]]
+    print(f"[submaps] SLAM 640x480, BA on keyframe, submap every 2: "
+          f"{n_ins} insertions, {slam.atlas.count} submaps, anchors "
+          f"{slam.atlas.anchor_kf_id.tolist()}, {len(pts)} surface points, "
+          f"median |z| on the plane {np.median(err) * 1e3:.2f} mm, map "
+          f"consistency {mc}, mesh {len(m.vertices)} vertices; median ms of "
+          f"keyframe frames (BA and fusion) {np.median(kf_ms):.2f} "
+          f"({len(kf_ms)}), phase 16's (monolithic) "
+          f"{pace['dense_kf_ms']:.2f}; describe launches {sub_launches}; "
+          f"{smi}", flush=True)
+
+    # 4. chunked against per frame, BA off; every fusion of both and every
+    # dispatch after the capture under sync debug mode "error"
+    def checked(fn, calls):
+        def run(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            calls.append(1)
+        return run
+
+    per_frame = SLAM(cfg, seq.K, ba_mode="disabled", device=dev)
+    pf_fusions = []
+    per_frame._fuse = checked(per_frame._fuse, pf_fusions)
+    track(per_frame, seq)
+    del per_frame._fuse
+    cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK)
+    fusions = []
+    cs._fuse_kf = checked(cs._fuse_kf, fusions)
+    got_c, _, _, _ = _stream(cs, seq, range(FRAMES), sync_checked=True)
+    del cs._fuse_kf
+    eq = [torch.equal(a, b) for a, b in zip(cs.atlas[:5], per_frame.atlas[:5])]
+    if not (len(got_c) == FRAMES and not cs._depth_ring and cs.replays >= 1
+            and len(fusions) == len(pf_fusions) == per_frame.num_keyframes
+            and cs.atlas.count == per_frame.atlas.count >= 2 and all(eq)):
+        raise AssertionError(
+            f"chunked atlas != per frame: {len(got_c)} results, ring "
+            f"{len(cs._depth_ring)}, fusions {len(fusions)} / "
+            f"{len(pf_fusions)}, counts {cs.atlas.count} / "
+            f"{per_frame.atlas.count}, fields equal {eq}")
+
+    # 5. the chunked run's atlas through a checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "atlas.npz")
+        save_checkpoint(path, cs.state, atlas=cs.atlas,
+                        kf_insertions=cs._kf_insertions)
+        back, kf_ins = load_checkpoint_atlas(path, cfg, dev)
+    if not (kf_ins == cs._kf_insertions and back.count == cs.atlas.count
+            and all(torch.equal(a, b) for a, b in zip(back[:5],
+                                                      cs.atlas[:5]))):
+        raise AssertionError("checkpoint changed the atlas")
+    print(f"[submaps] ChunkedStream chunk {CHUNK}, BA off, submaps on, "
+          f"{cs.replays} replays: {len(fusions)} chunk-late fusions into "
+          f"{cs.atlas.count} submaps, atlas (tsdf, weight, anchors, ids) "
+          f"bit-equal to per-frame SLAM's, depth ring drained; 0 host syncs "
+          f"in every dispatch after the capture and in every fusion of both "
+          f"shells (sync debug mode 'error'); the atlas saved and loaded "
+          f"bit-equal; {smi}", flush=True)
+
+    # 6. dense ICP rescue through the mask blackout: at the test's own
+    # 320x240 configuration, then at 640x480 with SLAMConfig()'s ORB and
+    # map; and one refine pass over the 60-frame plane
+    small = config.SLAMConfig(
+        image_height=240, image_width=320,
+        orb=config.OrbConfig(num_features=512, num_levels=4,
+                             max_features=512),
+        pnp=config.PnPConfig(num_hypotheses=128),
+        map=config.MapConfig(max_keyframes=16, max_map_points=8192))
+    off, black, bseq = _blackout(240, 320, small, "off", 0, dev)
+    if any(off.diagnostics[i]["success"] for i in black):
+        raise AssertionError("blackout frames track without ICP")
+    rescue = []
+    for (h, w, c) in ((240, 320, small), (480, 640, base)):
+        for every, gate in ((0, 0.08), (1, 0.12)):
+            sl, black, bseq = _blackout(h, w, c, "rescue", every, dev)
+            rescue.append((f"{w}x{h}", "atlas" if every else "volume") +
+                          tuple(round(x, 4) for x in _rescue_gates(
+                              sl, black, bseq, gate, f"rescue {w}x{h}")))
+    rcfg = cfg.replace(dense=dataclasses.replace(cfg.dense, submap_every=0),
+                       dense_icp=dataclasses.replace(cfg.dense_icp,
+                                                     mode="refine"))
+    ref_slam = track(SLAM(rcfg, seq.K, device=dev), seq)
+    refines = [e for e in ref_slam.icp_events if e["mode"] == "refine"]
+    plain = [d["wall_ms"] for d in ref_slam.diagnostics[1:]
+             if not d["ran_ba"]]
+    if not refines or any(e["accepted"] and not e["rmse"] < e["rmse_init"]
+                          for e in refines):
+        raise AssertionError(f"refine: {refines}")
+    print(f"[submaps] dense ICP rescue through the mask blackout (frames "
+          f"16-21 of 34 spheres, BA on keyframe), held to tests/"
+          f"test_dense_icp.py's gates (8 cm, 12 cm with the atlas); no "
+          f"blackout frame tracks without ICP at 320x240; (size, model, "
+          f"accepted rescues, median ms of rescue frames, of tracked frames, "
+          f"worst error m): {rescue}; refine over the 60-frame plane with "
+          f"BA on keyframe: {len(refines)} refines, "
+          f"{sum(e['accepted'] for e in refines)} accepted, median "
+          f"{np.median(plain):.2f} ms of frames without a solve against "
+          f"phase 7's {pace['slam_ba_ms']:.2f}; {smi}", flush=True)
+    return sub_launches
 
 
 def main() -> int:
@@ -1737,6 +2132,7 @@ def main() -> int:
           f"with one {np.median(with_ba):.2f} ({len(with_ba)} frames, after "
           f"the first); launches {launches_ba}; {smi}", flush=True)
     launches = {k: slice_launches[k] + launches_ba[k] for k in launches}
+    phase7_ms = float(np.median(without))
 
     # 8. asynchronous BA on a side stream
     async_phase(dev, seq, smi)
@@ -1746,7 +2142,7 @@ def main() -> int:
 
     # 10-12. the chunked streaming executor: one CUDA graph per chunk,
     # chunk-late async BA on a graphed solve, checkpoint and resume
-    pace = {}
+    pace = {"slam_ba_ms": phase7_ms}
     chunked, chunk_launches = chunk_phase(dev, seq, smi, pace)
     launches["describe_keypoints"] += chunk_launches
     chunk_async_phase(dev, seq, smi)
@@ -1758,7 +2154,10 @@ def main() -> int:
     chunk_loop_phase(dev, smi, pace)
 
     # 16. the monolithic TSDF volume: integrate, raycast, the shells
-    launches["describe_keypoints"] += dense_phase(dev, seq, smi)
+    launches["describe_keypoints"] += dense_phase(dev, seq, smi, pace)
+
+    # 17. the submap atlas and dense ICP
+    launches["describe_keypoints"] += submap_phase(dev, seq, smi, pace)
 
     ref_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "kbslam") + os.sep

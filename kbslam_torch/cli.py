@@ -14,10 +14,13 @@ same flags, validation errors and summary JSON keys:
   failures in a row) and ``--cull`` (keyframe culling), per frame and
   with ``--chunk``;
 - ``--dense`` (keyframe depth fused into the monolithic TSDF volume, per
-  frame and with ``--chunk``), ``--save-surface``, ``--save-mesh``;
+  frame and with ``--chunk``), ``--dense-submaps K`` (a submap atlas
+  instead, a new submap every K keyframe insertions), ``--dense-icp
+  {off,rescue,refine}`` (frame-to-model tracking, per frame only),
+  ``--save-surface``, ``--save-mesh``;
 - ``--mask``, ``--dist``, ``--depth-edge-rel``, ``--save-trajectory``,
-  ``--save-checkpoint`` (with the volume), ``--resume`` (restores it) and
-  ``--eval``.
+  ``--save-checkpoint`` (with the volume or the atlas), ``--resume``
+  (restores it) and ``--eval``.
 
 ``--viewer`` belongs to a later slice of the port (ROADMAP.md) and is
 refused; so is any other flag.
@@ -95,8 +98,12 @@ def _dense_summary(summary, args, shell, rc):
     voxels, surface points, ``render_consistency`` when ``rc``), and the
     --save-surface / --save-mesh files."""
     pts, _ = shell.dense_surface()
-    summary["tsdf_observed_voxels"] = int((shell.tsdf.weight > 0).sum())
+    vol = shell.tsdf if shell.tsdf is not None else shell.atlas
+    summary["tsdf_observed_voxels"] = int((vol.weight > 0).sum())
     summary["tsdf_surface_points"] = len(pts)
+    if shell.atlas is not None:
+        summary["tsdf_submaps"] = min(shell.atlas.count,
+                                      shell.atlas.capacity)
     if rc is not None:
         summary["render_consistency"] = rc
     if args.save_surface:
@@ -115,18 +122,34 @@ def _rc_meta(rc):
     return {f"render_consistency_{k}": v for k, v in rc.items()} if rc else None
 
 
-def _resume_tsdf(args, cfg, shell):
-    """--resume with --dense: the saved volume, or a warning that the
-    volume restarts empty."""
-    from kbslam_torch.io.checkpoint import load_checkpoint_tsdf
+def _resume_dense(args, cfg, shell):
+    """--resume with --dense: the saved volume or atlas, or a warning
+    that the dense model restarts empty."""
+    from kbslam_torch.io.checkpoint import (load_checkpoint_atlas,
+                                            load_checkpoint_tsdf)
 
-    tsdf = load_checkpoint_tsdf(args.resume, cfg, shell.device)
-    if tsdf is not None:
-        shell.tsdf = tsdf
+    if args.dense_submaps:
+        atlas, kf_ins = load_checkpoint_atlas(args.resume, cfg, shell.device)
+        if atlas is not None:
+            shell.restore_atlas(atlas, kf_ins)
+            return
+        what = "submap atlas"
     else:
-        print("warning: checkpoint has no TSDF volume — the dense map "
-              "restarts empty and will only cover post-resume keyframes",
-              file=sys.stderr)
+        tsdf = load_checkpoint_tsdf(args.resume, cfg, shell.device)
+        if tsdf is not None:
+            shell.tsdf = tsdf
+            return
+        what = "TSDF volume"
+    print(f"warning: checkpoint has no {what} — the dense map restarts "
+          "empty and will only cover post-resume keyframes",
+          file=sys.stderr)
+
+
+def _icp_summary(summary, shell):
+    """The reference's counts of accepted dense ICP rescues and refines."""
+    for mode in ("rescue", "refine"):
+        summary[f"icp_{mode}s"] = sum(
+            1 for e in shell.icp_events if e["mode"] == mode and e["accepted"])
 
 
 def main(argv=None):
@@ -179,6 +202,18 @@ def main(argv=None):
     ap.add_argument("--save-mesh", default=None, metavar="PATH.ply",
                     help="write the TSDF isosurface as a welded triangle "
                     "mesh with vertex normals, binary PLY (requires --dense)")
+    ap.add_argument("--dense-submaps", type=int, default=0, metavar="K",
+                    help="open a new TSDF submap every K keyframe "
+                    "insertions, each anchored to its keyframe, so the "
+                    "dense model follows BA and loop corrections (requires "
+                    "--dense; 0 = one monolithic volume)")
+    ap.add_argument("--dense-icp", choices=["off", "rescue", "refine"],
+                    default="off",
+                    help="frame-to-model tracking against the TSDF (requires "
+                    "--dense, per frame only): 'rescue' recovers the pose "
+                    "from geometry when PnP fails, 'refine' also polishes "
+                    "tracked poses (with --dense-submaps only against "
+                    "submaps the current tracking did not build)")
     ap.add_argument("--depth-edge-rel", type=float, default=0.0, metavar="R",
                     help="range-aware rim-gate term: spread threshold = "
                     "max(0.15, R*z^2); 0 = off")
@@ -205,6 +240,21 @@ def main(argv=None):
         if not args.dense:
             ap.error("--save-surface/--save-mesh require --dense")
         cfg = cfg.replace(dense=dataclasses.replace(cfg.dense, enabled=True))
+    if args.dense_submaps:
+        if not args.dense:
+            ap.error("--dense-submaps requires --dense")
+        cfg = cfg.replace(dense=dataclasses.replace(
+            cfg.dense, submap_every=args.dense_submaps))
+    if args.dense_icp != "off":
+        if not args.dense:
+            ap.error("--dense-icp requires --dense (the TSDF volume is the "
+                     "model)")
+        if args.chunk:
+            ap.error("--dense-icp runs on the per-frame path only (rescue "
+                     "must intervene on the frame that failed; chunked "
+                     "tracking has already committed the chunk)")
+        cfg = cfg.replace(dense_icp=dataclasses.replace(
+            cfg.dense_icp, mode=args.dense_icp))
     if args.loop or args.reloc:
         cfg = cfg.replace(loop=dataclasses.replace(
             cfg.loop, enabled=bool(args.loop), reloc_after=args.reloc))
@@ -224,7 +274,7 @@ def main(argv=None):
 
         slam.state, _ = load_checkpoint(args.resume, cfg, slam.device)
         if args.dense:
-            _resume_tsdf(args, cfg, slam)
+            _resume_dense(args, cfg, slam)
     gts, n = [], 0
     for rgb, depth, mask, gt in frames:
         if n >= args.frames:
@@ -250,6 +300,8 @@ def main(argv=None):
         if n > 1 else None,
     )
     _loop_summary(summary, args, slam)
+    if args.dense_icp != "off":
+        _icp_summary(summary, slam)
     rc = None
     if args.dense:
         rc = slam.map_consistency()
@@ -262,6 +314,7 @@ def main(argv=None):
 
         save_checkpoint(args.save_checkpoint, slam.state,
                         trajectory=slam.frame_poses, tsdf=slam.tsdf,
+                        atlas=slam.atlas, kf_insertions=slam._kf_insertions,
                         meta=_rc_meta(rc))
     if args.save_trajectory:
         _save_trajectory(args.save_trajectory, est)
@@ -291,7 +344,7 @@ def _run_chunked(args, cfg, K, frames, dist):
                        use_mask=args.mask, seed=args.seed,
                        ba_mode="async" if args.ba == "async" else "off")
     if args.resume and args.dense:
-        _resume_tsdf(args, cfg, cs)
+        _resume_dense(args, cfg, cs)
     results, gts, n = [], [], 0
     t0 = time.perf_counter()
     for rgb, depth, mask, gt in frames:
@@ -311,7 +364,8 @@ def _run_chunked(args, cfg, K, frames, dist):
         from kbslam_torch.io.checkpoint import save_checkpoint
 
         save_checkpoint(args.save_checkpoint, cs.state, trajectory=list(est),
-                        tsdf=cs.tsdf, meta=_rc_meta(rc))
+                        tsdf=cs.tsdf, atlas=cs.atlas,
+                        kf_insertions=cs._kf_insertions, meta=_rc_meta(rc))
     summary = dict(
         frames=n,
         success=sum(r["success"] for r in results),

@@ -8,7 +8,8 @@ NamedTuples holding numpy arrays, which the JAX types accept field by
 field (``kbslam.mapping.state.MapState(**m._asdict())``).
 ``tuple_to_torch`` carries any other NamedTuple of arrays, such as the
 loop closure's ``PoseGraph``, ``LoopCandidate`` and ``LoopConstraint``;
-``tsdf_to_torch`` and ``tsdf_to_numpy`` carry the dense volume.
+``tsdf_to_torch`` and ``tsdf_to_numpy`` carry the dense volume,
+``atlas_to_torch`` and ``atlas_to_numpy`` the submap atlas.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from kbslam_torch.mapping.dense import TSDFState
+from kbslam_torch.mapping.submap import SubmapAtlas
 from kbslam_torch.mapping.state import MapState
 from kbslam_torch.pipeline import TrackState
 
@@ -80,3 +82,25 @@ def tsdf_to_numpy(state: TSDFState) -> TSDFState:
     """The port's volume as numpy arrays (copies), which the JAX
     ``TSDFState`` and ``mapping/mesh.py`` accept."""
     return TSDFState(*(a.detach().cpu().numpy().copy() for a in state))
+
+
+def atlas_to_torch(atlas_np, device) -> SubmapAtlas:
+    """An atlas of arrays (a JAX ``SubmapAtlas`` after ``jax.device_get``,
+    or a checkpoint's) as the port's: copies on ``device`` with the
+    reference's dtypes, and ``count`` a host int."""
+    def arr(name, dtype):
+        return torch.from_numpy(np.array(getattr(atlas_np, name), dtype)
+                                ).to(device)
+    return SubmapAtlas(
+        tsdf=arr("tsdf", np.float32), weight=arr("weight", np.float32),
+        anchor_q=arr("anchor_q", np.float32),
+        anchor_t=arr("anchor_t", np.float32),
+        anchor_kf_id=arr("anchor_kf_id", np.int32),
+        count=int(np.asarray(atlas_np.count)))
+
+
+def atlas_to_numpy(atlas: SubmapAtlas) -> SubmapAtlas:
+    """The port's atlas as numpy arrays (copies; ``count`` a 0-d int32),
+    which the JAX ``SubmapAtlas`` accepts field by field."""
+    return SubmapAtlas(*(a.detach().cpu().numpy().copy() for a in atlas[:5]),
+                       count=np.int32(atlas.count))

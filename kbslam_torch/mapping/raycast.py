@@ -1,9 +1,10 @@
 """TSDF raycasting: render depth and normal images from the dense volume.
 
-Port of kbslam/mapping/raycast.py (the monolithic volume). Given the
-fused TSDF and a camera pose, ``raycast`` predicts the depth image the
-map expects from that view; ``render_consistency`` compares it with an
-observed depth image, a map-quality metric.
+Port of kbslam/mapping/raycast.py. Given the fused TSDF (the monolithic
+volume, or one submap of the atlas) and a camera pose, ``raycast``
+predicts the depth image the map expects from that view;
+``render_consistency`` compares it with an observed depth image, a
+map-quality metric.
 
 Every ray takes the same fixed steps of 0.75 x truncation (the TSDF is
 clamped to +-1 outside the band, so a surface crossing cannot be
@@ -121,19 +122,30 @@ def make_raycast(cfg: DenseMapConfig, intr: Intrinsics, height: int,
 
 def resolve_render_model(tsdf, atlas, map_state, q, t):
     """The volume and the model-frame pose to render camera-to-world
-    (q, t) from: (TSDFState, SE3 on the volume's device, None) for the
-    monolithic volume, (None, None, None) when no volume exists. The
-    submap atlas (Slice E2) raises."""
-    if atlas is not None:
-        raise NotImplementedError(
-            "rendering the submap atlas belongs to Slice E2 of the port "
-            "(ROADMAP.md)")
-    if tsdf is None:
+    (q, t) from, host-side: (TSDFState, SE3, None) for the monolithic
+    volume; for the submap atlas its active submap, re-posed by its
+    anchor's current ring pose (``submap.recent_slots_with_poses``), with
+    the pose in that submap's frame and the anchor SE3 (a one-submap
+    view: the newest chunk is where the camera looks); (None, None, None)
+    when no fused model exists."""
+    if tsdf is not None:
+        dev = tsdf.tsdf.device
+    elif atlas is not None and atlas.count > 0:
+        dev = atlas.tsdf.device
+    else:
         return None, None, None
-    dev = tsdf.tsdf.device
     pose = SE3(torch.as_tensor(q, dtype=torch.float32, device=dev),
                torch.as_tensor(t, dtype=torch.float32, device=dev))
-    return tsdf, pose, None
+    if tsdf is not None:
+        return tsdf, pose, None
+    from kbslam_torch.mapping.submap import recent_slots_with_poses
+
+    slots, aq, at = recent_slots_with_poses(atlas, map_state, 1)
+    s = int(slots[0])
+    anchor = SE3(torch.from_numpy(aq[0]).to(dev),
+                 torch.from_numpy(at[0]).to(dev))
+    return (TSDFState(atlas.tsdf[s], atlas.weight[s]),
+            (anchor.inverse() @ pose).normalize(), anchor)
 
 
 def render_consistency(state: TSDFState, pose: SE3, depth_obs,

@@ -21,12 +21,20 @@ next poll.
 Keyframe culling (``config.cull``), loop closure (``config.loop.enabled``)
 and relocalization (``config.loop.reloc_after``) run in the reference's
 order inside ``process``: cull on insertion, then BA (or the merge of a
-finished asynchronous solve), the relocalization tick, dense fusion of a
-keyframe's depth (``config.dense.enabled``, the monolithic TSDF volume of
-``mapping/dense.py``), the loop tick, and the asynchronous dispatch last,
-so a new solve sees the corrected map. The submap atlas
-(``dense.submap_every > 0``) and dense ICP belong to Slice E2 of the port
-(ROADMAP.md) and raise ``NotImplementedError``.
+finished asynchronous solve), the relocalization tick, the dense ICP tick
+(``config.dense_icp``, ``mapping/icp.py``), dense fusion of a keyframe's
+depth (``config.dense.enabled``: the monolithic TSDF volume of
+``mapping/dense.py``, or with ``dense.submap_every > 0`` the submap atlas
+of ``mapping/submap.py``), the loop tick, and the asynchronous dispatch
+last, so a new solve sees the corrected map.
+
+With the atlas, fusion makes no host read: the anchor's id comes from a
+host count of insertions, and its current ring pose (or the stored one,
+when its ring slot was reallocated) is chosen on the device, so the
+default path keeps its one host sync per frame. The dense ICP tick reads
+its result once per solve, and against the atlas first reads the map
+ring to choose its window of submaps (``submap.recent_slots_with_poses``,
+host-side as in the reference).
 """
 from __future__ import annotations
 
@@ -41,9 +49,10 @@ from kbslam_torch.ba.local_ba import (AsyncLocalBA, make_local_ba,
 from kbslam_torch.convert import tsdf_to_numpy
 from kbslam_torch.device import pick_device, upload
 from kbslam_torch.geom.camera import Intrinsics
+from kbslam_torch.geom.se3 import quat_rotate
 from kbslam_torch.loop.reloc import make_reloc_step
 from kbslam_torch.loop.runner import LoopCloser
-from kbslam_torch.mapping import dense, mesh, raycast
+from kbslam_torch.mapping import dense, icp, mesh, raycast, submap
 from kbslam_torch.mapping.cull import make_cull
 from kbslam_torch.pipeline import init_state, make_track_step
 
@@ -147,33 +156,69 @@ def map_point_positions(m) -> np.ndarray:
 
 
 def check_dense_config(config):
-    """Raise on the dense options of later slices: the submap atlas and
-    dense ICP (Slice E2)."""
-    for name, on in (("dense.submap_every", config.dense.submap_every > 0),
-                     ("dense_icp", config.dense_icp.mode != "off")):
-        if on:
-            raise NotImplementedError(
-                f"config.{name} belongs to Slice E2 of the port (ROADMAP.md)")
+    """Raise what the reference raises on the dense options: dense ICP
+    needs the dense model, and its mode must be known."""
+    mode = config.dense_icp.mode
+    if mode != "off":
+        if not config.dense.enabled:
+            raise ValueError("dense_icp requires dense.enabled "
+                             "(the TSDF volume is the model)")
+        if mode not in ("rescue", "refine"):
+            raise ValueError(f"unknown dense_icp.mode {mode!r}")
+
+
+def anchor_pose_now(atlas, map_state):
+    """(q, t) on the device of the active submap's anchor keyframe at its
+    current ring pose, or the stored anchor pose when the ring slot was
+    reallocated: the gauge the frame poses live in. Chosen by a device
+    ``where`` over rows picked by ``index_select``, so no host read."""
+    s = atlas.active_slot()
+    kid = atlas.anchor_kf_id[s:s + 1].to(torch.int64)        # [1]
+    slot = kid % map_state.kf_id.shape[0]
+    live = (kid >= 0) & (map_state.kf_id.index_select(0, slot) == kid)
+    return (torch.where(live, map_state.kf_q.index_select(0, slot)[0],
+                        atlas.anchor_q[s]),
+            torch.where(live, map_state.kf_t.index_select(0, slot)[0],
+                        atlas.anchor_t[s]))
 
 
 class DenseViews:
-    """The read side of the monolithic TSDF volume, shared by ``SLAM``
-    and ``streaming.ChunkedStream``. The shell sets ``tsdf`` (the
-    volume, or None with dense mapping off), ``dense_cfg``, ``intr``,
-    ``_image_hw``, ``_depth_scale`` and ``_last_kf_view`` (pose and host
-    depth of the newest fused keyframe)."""
+    """The read side of the dense model, shared by ``SLAM`` and
+    ``streaming.ChunkedStream``. The shell sets ``tsdf`` (the monolithic
+    volume) or ``atlas`` (the submap atlas), or neither with dense mapping
+    off, and ``dense_cfg``, ``intr``, ``_image_hw``, ``_depth_scale`` and
+    ``_last_kf_view`` (pose, host depth and global id of the newest fused
+    keyframe); ``state`` is the live tracking state. The atlas is read by
+    its anchors' current ring poses (host-side, not hot)."""
+
+    def restore_atlas(self, atlas, kf_insertions: int):
+        """Go on with a saved atlas (a resume) and its count of fused
+        keyframe frames, so new submaps open in phase."""
+        self.atlas, self._kf_insertions = atlas, kf_insertions
+
+    def _anchor_poses_now(self) -> dict:
+        return submap.anchor_poses_now(self.atlas, self.state.map)
 
     def dense_surface(self) -> tuple:
-        """Zero-crossing point cloud of the volume: (points [M, 3] world,
-        |tsdf| residual [M]) (``mapping/dense.surface_points``)."""
+        """Zero-crossing point cloud of the model: (points [M, 3] world,
+        |tsdf| residual [M]) (``mapping/dense.surface_points``; with the
+        atlas, the union of its submaps' surfaces, each re-posed by its
+        anchor's current pose)."""
+        if self.atlas is not None:
+            return submap.extract_atlas_surface(self.atlas, self.dense_cfg,
+                                                self._anchor_poses_now())
         if self.tsdf is None:
             raise RuntimeError("dense mapping disabled "
                                "(SLAMConfig.dense.enabled)")
         return dense.surface_points(self.tsdf, self.dense_cfg)
 
     def dense_mesh(self) -> mesh.TriangleMesh:
-        """The volume's zero isosurface as one welded triangle mesh
-        (``mapping/mesh.marching_tetrahedra``, host-side)."""
+        """The model's zero isosurface (``mapping/mesh.marching_tetrahedra``,
+        host-side): one welded mesh of the volume, or the atlas's
+        per-submap meshes re-posed by their anchors and concatenated."""
+        if self.atlas is not None:
+            return submap.atlas_mesh(self.atlas, self.dense_cfg,
+                                     self._anchor_poses_now())
         if self.tsdf is None:
             raise RuntimeError("dense mapping disabled "
                                "(SLAMConfig.dense.enabled)")
@@ -192,41 +237,63 @@ class DenseViews:
         return (Intrinsics(i.fx / stride, i.fy / stride, i.cx / stride,
                            i.cy / stride, i.dist), H // stride, W // stride)
 
-    def render_view(self, q=None, t=None, stride: int = 1):
-        """Raycast the volume from camera-to-world (q, t), by default the
-        newest fused keyframe's pose: a ``RaycastResult`` with world
-        normals on the volume's device, or None before the first fused
-        keyframe. Give both of q and t or neither. ``stride`` renders
-        every stride-th pixel (the full 640x480 render marches 20M
-        samples).
+    def _last_view(self):
+        """(q, t, host depth) of the newest fused keyframe, or None. The
+        monolithic volume is never re-warped, so its keyframe is viewed
+        from the pose it was fused at. The atlas follows corrections, so
+        the keyframe is viewed from its current ring pose (the pose it
+        was fused at once its ring slot was reallocated): the fused pose
+        would mix the gauge of the fusion with that of the re-posed
+        anchor."""
+        if self._last_kf_view is None:
+            return None
+        q, t, depth, kid = self._last_kf_view
+        if self.atlas is not None:
+            m = self.state.map
+            i = kid % m.kf_id.shape[0]
+            if kid >= 0 and int(m.kf_id[i]) == kid:
+                q, t = m.kf_q[i].cpu().numpy(), m.kf_t[i].cpu().numpy()
+        return q, t, depth
 
-        The monolithic volume is never re-warped by a loop correction,
-        so the pose a keyframe was fused at, which the default keeps, is
-        the pose to render it from; a re-posed model (the submap atlas)
-        would need the keyframe's current ring pose instead."""
+    def render_view(self, q=None, t=None, stride: int = 1):
+        """Raycast the model from camera-to-world (q, t), by default the
+        newest fused keyframe's (``_last_view``): a ``RaycastResult`` with
+        world normals on the model's device, or None before the first
+        fused keyframe. Give both of q and t or neither. ``stride``
+        renders every stride-th pixel (the full 640x480 render marches
+        20M samples). The atlas renders its active submap, re-posed by
+        its anchor's current ring pose."""
         if (q is None) != (t is None):
             raise ValueError("render_view takes both q and t, or neither")
         if q is None:
-            if self._last_kf_view is None:
+            view = self._last_view()
+            if view is None:
                 return None
-            q, t, _ = self._last_kf_view
-        vol, pose, _ = raycast.resolve_render_model(self.tsdf, None, None,
-                                                    q, t)
+            q, t, _ = view
+        vol, pose, anchor = raycast.resolve_render_model(
+            self.tsdf, self.atlas, self.state.map, q, t)
         if vol is None:
             return None
         intr_s, H, W = self._scaled_intr(stride)
-        return raycast.make_raycast(self.dense_cfg, intr_s, H, W)(
+        r = raycast.make_raycast(self.dense_cfg, intr_s, H, W)(
             vol, pose.q, pose.t)
+        if anchor is not None:
+            # the submap's normals come back in its local frame
+            n = quat_rotate(anchor.q, r.normal.reshape(-1, 3))
+            r = r._replace(normal=n.reshape(r.normal.shape))
+        return r
 
     def map_consistency(self, stride: int = 2) -> Optional[dict]:
         """Rendered against observed depth at the newest fused keyframe
-        (``mapping/raycast.render_consistency``): median and p90 error
-        and coverage, or None before the first fused keyframe."""
-        if self._last_kf_view is None:
+        (``mapping/raycast.render_consistency``, from ``_last_view``'s
+        pose): median and p90 error and coverage, or None before the
+        first fused keyframe."""
+        view = self._last_view()
+        if view is None:
             return None
-        q, t, depth = self._last_kf_view
-        vol, pose, _ = raycast.resolve_render_model(self.tsdf, None, None,
-                                                    q, t)
+        q, t, depth = view
+        vol, pose, _ = raycast.resolve_render_model(
+            self.tsdf, self.atlas, self.state.map, q, t)
         if vol is None:
             return None
         intr_s, H, W = self._scaled_intr(stride)
@@ -282,12 +349,30 @@ class SLAM(DenseViews):
         self.dense_cfg = config.dense
         self._image_hw = (config.image_height, config.image_width)
         self._depth_scale = config.map.depth_scale
-        self._last_kf_view = None
-        self.tsdf, self._integrate = None, None
-        if config.dense.enabled:
-            self.tsdf = dense.empty_tsdf(config.dense, self.device)
-            self._integrate = dense.make_integrate(
-                config.dense, self.intr, config.map.depth_scale)
+        self._last_kf_view = None   # (q, t, host depth, global kf id)
+        self.tsdf = self._integrate = self.atlas = None
+        self._kf_insertions = 0     # keyframe frames fused into the atlas
+        self._num_kf = 0            # the map's insertions, counted here
+        d, scale = config.dense, config.map.depth_scale
+        if d.enabled and d.submap_every > 0:
+            self.atlas = submap.empty_atlas(d, d.max_submaps, self.device)
+            self._submap_start, self._submap_fuse = submap.make_submap_ops(
+                d, self.intr, d.max_submaps, scale)
+        elif d.enabled:
+            self.tsdf = dense.empty_tsdf(d, self.device)
+            self._integrate = dense.make_integrate(d, self.intr, scale)
+        self._icp = self._icp_atlas = None
+        if config.dense_icp.mode != "off":
+            # with the atlas: the newest dense_icp.atlas_slots submaps,
+            # re-posed by their anchors' current ring poses
+            if self.atlas is not None:
+                self._icp_atlas = icp.make_icp_atlas(d, config.dense_icp,
+                                                     self.intr, scale)
+            else:
+                self._icp = icp.make_icp(d, config.dense_icp, self.intr,
+                                         scale)
+        self._last_icp_qt = None    # chained rescue poses (host)
+        self.icp_events: List[dict] = []
 
     @property
     def state(self):
@@ -298,7 +383,7 @@ class SLAM(DenseViews):
         """Replace the tracking state (a resume): the loop runner counts
         its ordinals on from the new map's insertions."""
         self._state = value
-        self._tracked_kf = int(value.map.num_kf)
+        self._tracked_kf = self._num_kf = int(value.map.num_kf)
         if self._loop is not None:
             self._loop.start_at(self._tracked_kf)
 
@@ -370,16 +455,20 @@ class SLAM(DenseViews):
             o = self._reloc_tick(o, args)
             inserted += int(o.get("relocalized", False))
 
+        self._num_kf += inserted
+        # dense ICP after the reloc tick (a relocalized frame is a
+        # keyframe and skips refine) and before fusion, so a rescued pose
+        # is the one the model would see
+        if self._icp is not None or self._icp_atlas is not None:
+            o = self._icp_tick(o, args[1])
+
         # dense fusion after the reloc tick (a relocalized frame is a
         # keyframe at its recovered pose) and before the loop tick
-        if self._integrate is not None and o["added_kf"]:
-            dev = self.device
-            self.tsdf = self._integrate(
-                self.tsdf, args[1],
-                upload(np.asarray(o["pose_q"], np.float32), dev),
-                upload(np.asarray(o["pose_t"], np.float32), dev))
+        if self.config.dense.enabled and o["added_kf"]:
+            self._fuse(o, args[1])
             self._last_kf_view = (np.asarray(o["pose_q"]),
-                                  np.asarray(o["pose_t"]), depth)
+                                  np.asarray(o["pose_t"]), depth,
+                                  self._num_kf - 1)
 
         inflight = self._async.inflight if self._async is not None else None
         if self._loop is not None:
@@ -411,6 +500,92 @@ class SLAM(DenseViews):
         self.diagnostics.append(diag)
         self._frame += 1
         return diag
+
+    def _fuse(self, o, depth_dev):
+        """Fuse the keyframe's depth at its pose: into the volume, or into
+        the active submap of the atlas, opening one anchored at this
+        keyframe on every ``submap_every``-th insertion. Makes no host
+        read. The anchor pose is the anchor's current ring pose: a
+        correction between this fusion and the last moved the frame pose
+        and the anchor alike, and the loop tick, the one rigid gauge
+        change, comes after fusion (an asynchronous BA merge holds the
+        window's newest keyframe fixed, so it is no gauge change)."""
+        dev = self.device
+        q = upload(np.asarray(o["pose_q"], np.float32), dev)
+        t = upload(np.asarray(o["pose_t"], np.float32), dev)
+        if self.atlas is None:
+            self.tsdf = self._integrate(self.tsdf, depth_dev, q, t)
+            return
+        if self._kf_insertions % self.config.dense.submap_every == 0:
+            self.atlas = self._submap_start(self.atlas, q, t,
+                                            self._num_kf - 1)
+        aq, at = anchor_pose_now(self.atlas, self._state.map)
+        self.atlas = self._submap_fuse(self.atlas, depth_dev, q, t, aq, at)
+        self._kf_insertions += 1
+
+    def _icp_tick(self, o, depth_dev) -> dict:
+        """The frame-to-model tick (``config.dense_icp``):
+
+        - PnP failed ("rescue" and "refine"): align the depth frame to
+          the model from the last emitted pose (chained across rescues in
+          a row, which the device's held pose does not know) and, when
+          the gates pass, emit the recovered pose as a success. The map
+          is untouched: the next PnP still anchors to the last keyframe,
+          as in the reference, but the trajectory keeps flowing through
+          texture starvation. The fail streak is not reset: the sparse
+          pipeline is still lost, and relocalization must still fire on
+          schedule.
+        - PnP succeeded, "refine": polish the pose against the model,
+          accepted only when the robust SDF RMSE strictly improves;
+          skipped on keyframe frames, whose pose belongs to the sparse
+          map and BA.
+
+        The model is the volume, or the newest ``dense_icp.atlas_slots``
+        submaps re-posed by their anchors' current ring poses; refine
+        leaves out the active submap, so that the polish rests on
+        geometry not fused under the most recent drift. One host read per
+        solve."""
+        cfg = self.config.dense_icp
+        ok = bool(o["success"])
+        if ok:
+            self._last_icp_qt = None
+            if cfg.mode != "refine" or o["added_kf"]:
+                return o
+            q0, t0 = o["pose_q"], o["pose_t"]
+        elif self._last_icp_qt is not None:
+            q0, t0 = self._last_icp_qt
+        else:   # the held pose: the last one the device knows
+            q0, t0 = o["pose_q"], o["pose_t"]
+        dev = self.device
+        q0 = upload(np.asarray(q0, np.float32), dev)
+        t0 = upload(np.asarray(t0, np.float32), dev)
+        if self._icp is not None:
+            r = self._icp(self.tsdf, depth_dev, q0, t0)
+        else:
+            win = submap.recent_slots_with_poses(
+                self.atlas, self._state.map, cfg.atlas_slots,
+                exclude_active=ok)
+            if win is None:
+                return o    # no (independent) submap yet
+            r = self._icp_atlas(self.atlas, *(upload(a, dev) for a in win),
+                                depth_dev, q0, t0)
+        v = torch.cat([r.q, r.t, torch.stack([r.num_valid.to(r.q.dtype),
+                                              r.rmse_init, r.rmse])]
+                      ).cpu().numpy()
+        q, t, n, rmse_init, rmse = v[:4], v[4:7], int(v[7]), v[8], v[9]
+        accepted = bool(n >= cfg.min_points and rmse <= cfg.accept_rmse_m
+                        and rmse <= rmse_init)
+        if ok:      # refine: a strict improvement too
+            accepted = accepted and bool(rmse < rmse_init)
+        self.icp_events.append(dict(
+            frame=self._frame, mode="refine" if ok else "rescue",
+            accepted=accepted, num_valid=n, rmse_init=float(rmse_init),
+            rmse=float(rmse)))
+        if not accepted:
+            return o
+        if not ok:
+            self._last_icp_qt = (q, t)
+        return dict(o, success=True, pose_q=q, pose_t=t)
 
     def _reloc_tick(self, o, frame_args) -> dict:
         """After ``reloc_after`` failures in a row, try to re-anchor by

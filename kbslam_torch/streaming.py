@@ -48,13 +48,18 @@ graph's static buffers (``assign_state``), so the next replay reads it.
 ``graph=False`` runs full chunks through the same step eagerly (on the
 card too), the yardstick of the replayed path.
 
-Dense mapping (``cfg.dense.enabled``, the monolithic TSDF volume) fuses
-chunk-late too: ``feed`` keeps each frame's host depth in a ring keyed by
-frame index, and each drained keyframe is fused at its drained pose, as
-is a keyframe that relocalization inserts; a drained frame leaves the
-ring. The depth and the pose go up through pinned memory, so fusion adds
-no host sync. The submap atlas and dense ICP (Slice E2) raise
-``NotImplementedError``.
+Dense mapping (``cfg.dense.enabled``) fuses chunk-late too: ``feed``
+keeps each frame's host depth in a ring keyed by frame index, and each
+drained keyframe is fused, as is a keyframe that relocalization inserts;
+a drained frame leaves the ring. The monolithic volume fuses at the
+drained pose. The submap atlas (``dense.submap_every > 0``) opens and
+fuses submaps as the per-frame shell does, with the keyframe's global id
+from a host count; its frame and anchor poses come from the live ring
+(``_fusion_poses_now``). The depth and the poses go up through pinned
+memory or are copied on the stream, so fusion adds no host sync. Dense
+ICP runs on the per-frame path only (``ValueError``), as in the
+reference: a rescue must act on the frame that failed, and a chunk has
+already committed its frames.
 """
 from __future__ import annotations
 
@@ -69,7 +74,7 @@ from kbslam_torch.frontend.image import GRAY_WEIGHTS
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.loop.reloc import make_reloc_step
 from kbslam_torch.loop.runner import LoopCloser
-from kbslam_torch.mapping import dense
+from kbslam_torch.mapping import dense, submap
 from kbslam_torch.mapping.cull import make_cull
 from kbslam_torch.mapping.state import device_copy
 from kbslam_torch.pipeline import TrackOutput, TrackState, make_track_step
@@ -155,6 +160,10 @@ class ChunkedStream(DenseViews):
         if ba_mode not in ("off", "async"):
             raise ValueError(f"unknown ba_mode {ba_mode!r}")
         check_dense_config(cfg)
+        if cfg.dense_icp.mode != "off":
+            raise ValueError("dense_icp runs on the per-frame path only "
+                             "(a rescue must act on the frame that failed; "
+                             "a chunk has already committed its frames)")
         self.chunk = int(chunk)
         self.use_mask = use_mask
         self.gray = gray
@@ -209,13 +218,25 @@ class ChunkedStream(DenseViews):
         self.dense_cfg = cfg.dense
         self._image_hw = (cfg.image_height, cfg.image_width)
         self._depth_scale = cfg.map.depth_scale
-        self._last_kf_view = None  # (pose_q, pose_t, host depth)
+        self._last_kf_view = None  # (q, t, host depth, global kf id)
         self._fed = 0              # frames fed
-        self.tsdf = self._integrate = None
-        if cfg.dense.enabled:
-            self.tsdf = dense.empty_tsdf(cfg.dense, self.device)
-            self._integrate = dense.make_integrate(cfg.dense, intr,
-                                                   cfg.map.depth_scale)
+        self.tsdf = self._integrate = self.atlas = None
+        self._kf_insertions = 0       # keyframe frames fused into the atlas
+        self._active_anchor_kid = -1  # global id of the newest anchor
+        d, scale = cfg.dense, cfg.map.depth_scale
+        self._dense = d.enabled
+        if d.enabled and d.submap_every > 0:
+            self.atlas = submap.empty_atlas(d, d.max_submaps, self.device)
+            self._submap_start, self._submap_fuse = submap.make_submap_ops(
+                d, intr, d.max_submaps, scale)
+            self._submap_every = d.submap_every
+            self._kf_cap = int(state.map.kf_id.shape[0])
+            # the policy inserts keyframes at least this many frames apart
+            self._min_frame_gap = max(1, int(cfg.policy.min_frame_gap))
+        elif d.enabled:
+            self.tsdf = dense.empty_tsdf(d, self.device)
+            self._integrate = dense.make_integrate(d, intr, scale)
+        if d.enabled:
             self._depth_ring: dict = {}   # frame index -> host depth
 
     @property
@@ -258,7 +279,7 @@ class ChunkedStream(DenseViews):
     def feed(self, rgb, depth, mask=None) -> List[dict]:
         """Add one frame; returns any newly drained per-frame results."""
         arrays = self._host_frame(rgb, depth, mask)
-        if self._integrate is not None:
+        if self._dense:
             self._depth_ring[self._fed] = arrays[1]
         self._fed += 1
         if self._staging is None:
@@ -374,10 +395,11 @@ class ChunkedStream(DenseViews):
                      anchor_q=o["anchor_q"].copy(),
                      anchor_t=o["anchor_t"].copy())
             self._drained.append(d)
-            if self._integrate is not None:
+            if self._dense:
                 depth = self._depth_ring.pop(self._frame)
                 if d["added_kf"]:
-                    self._fuse_kf(d["pose_q"], d["pose_t"], depth)
+                    self._fuse_kf(d["pose_q"], d["pose_t"], depth,
+                                  self._kf_seen)
             if d["success"]:
                 self._tracked_kf = d["anchor_id"] + 1
             if self._reloc is not None:
@@ -392,15 +414,72 @@ class ChunkedStream(DenseViews):
             self._probe_frame = (self._frame - 1, p.last)
         return added
 
-    def _fuse_kf(self, q, t, depth):
-        """Fuse one keyframe's host depth into the volume at the host pose
-        (q, t); uploads through pinned memory, so no host sync."""
+    def _fuse_kf(self, q, t, depth, kid: int):
+        """Fuse one keyframe's host depth, taken at the host pose (q, t),
+        into the dense model; ``kid`` is its global keyframe id. Makes no
+        host sync."""
         dev = self.device
-        self.tsdf = self._integrate(
-            self.tsdf, upload(depth, dev),
-            upload(np.asarray(q, np.float32), dev),
-            upload(np.asarray(t, np.float32), dev))
-        self._last_kf_view = (np.asarray(q), np.asarray(t), depth)
+        self._last_kf_view = (np.asarray(q), np.asarray(t), depth, kid)
+        depth = upload(depth, dev)
+        q = upload(np.asarray(q, np.float32), dev)
+        t = upload(np.asarray(t, np.float32), dev)
+        if self.atlas is None:
+            self.tsdf = self._integrate(self.tsdf, depth, q, t)
+            return
+        if self._kf_insertions % self._submap_every == 0:
+            self.atlas = self._submap_start(self.atlas, q, t, kid)
+            self._active_anchor_kid = kid
+        self.atlas = self._submap_fuse(self.atlas, depth,
+                                       *self._fusion_poses_now(kid, q, t))
+        self._kf_insertions += 1
+
+    def restore_atlas(self, atlas, kf_insertions: int):
+        """Go on with a saved atlas (a resume): its count of fused keyframe
+        frames, and its newest anchor's id read from the atlas itself."""
+        super().restore_atlas(atlas, kf_insertions)
+        if atlas.count:
+            self._active_anchor_kid = int(
+                atlas.anchor_kf_id[atlas.active_slot()])
+
+    def _fusion_poses_now(self, kid: int, q_drained, t_drained):
+        """(frame q, frame t, anchor q, anchor t) on the device for fusing
+        drained keyframe ``kid`` into the active submap.
+
+        The frame pose and the anchor pose must live in one gauge
+        (``submap.integrate_active``). A loop correction that landed
+        while this chunk was in flight rewrote every ring pose, so the
+        drained pose may predate it while the anchor's ring pose follows
+        it. Both poses are therefore taken from the live ring at the same
+        instant: stream-ordered copies of the two ring rows, made after
+        the replay in flight and before the next, which rewrites the
+        graph's static buffers in place (a view would read the next
+        chunk's values).
+
+        The ring row of global id ``a`` is overwritten by insertion ``a +
+        cap``, so the ring is read only when no insertion can have
+        reached ``anchor + cap``: a host-only bound. Of the frames in
+        flight beyond this one, R, the step inserts only by the policy,
+        at least ``min_frame_gap`` frames apart, except the empty-map
+        insertion, which skips the gap: at most 1 + (R - 1) // gap
+        insertions beyond ``kid``. Relocalization inserts too, but only
+        after ``_maybe_reloc`` has drained every chunk in flight, so no
+        frame is in flight when one lands, and the bound holds. When the
+        bound fails (the anchor's slot may have been reallocated), the
+        drained pose and the atlas's stored anchor pose are used: one
+        gauge as long as no rigid correction landed since the submap
+        opened, the per-frame shell's fallback for a reallocated
+        anchor."""
+        anchor = self._active_anchor_kid
+        remaining = max(0, self._fed - self._frame - 1)
+        extra = 1 + (remaining - 1) // self._min_frame_gap   # 0 when R == 0
+        if anchor >= 0 and kid + extra < anchor + self._kf_cap:
+            m = self._state.map
+            fi, ai = kid % self._kf_cap, anchor % self._kf_cap
+            return (m.kf_q[fi].clone(), m.kf_t[fi].clone(),
+                    m.kf_q[ai].clone(), m.kf_t[ai].clone())
+        s = self.atlas.active_slot()
+        return q_drained, t_drained, self.atlas.anchor_q[s], \
+            self.atlas.anchor_t[s]
 
     # --- chunk-late keyframe work -----------------------------------------
     def _kf_tick(self, n_added: int, block: bool = False):
@@ -475,10 +554,12 @@ class ChunkedStream(DenseViews):
         self._fail_streak = 0
         self._kf_seen += 1
         self._tracked_kf = res["num_kf"]
-        if self._integrate is not None:
+        if self._dense:
             # the relocalized frame is a keyframe: its depth joins the
-            # volume like any drained insertion's
-            self._fuse_kf(res["pose_q"], res["pose_t"], arrays[1])
+            # model like any drained insertion's. Its id is the map's
+            # count less one, passed on: ``_kf_seen`` already counts it
+            self._fuse_kf(res["pose_q"], res["pose_t"], arrays[1],
+                          res["num_kf"] - 1)
         if self._loop is not None:
             self._loop.note_insertions()
         self.reloc_events.append(dict(

@@ -166,9 +166,19 @@ def test_meta_round_trip(jax_run, tmp_path):
 
 
 def test_dense_model_is_not_ported_yet(tmp_path):
-    """The monolithic volume is ported (tests/test_torch_dense.py); the
-    submap atlas is not."""
-    state = t_init(_tcfg(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tckpt.save_checkpoint(str(tmp_path / "x.npz"), state, atlas=object())
-    assert not (tmp_path / "x.npz").exists()
+    """Both dense models are ported now (tests/test_torch_dense.py,
+    tests/test_torch_submap_shells.py): a checkpoint written with the
+    atlas carries it back, one written without it has none."""
+    from kbslam_torch.mapping.submap import empty_atlas
+
+    cfg = _tcfg()
+    state = t_init(cfg, "cpu")
+    path = str(tmp_path / "x.npz")
+    atlas = empty_atlas(cfg.dense, cfg.dense.max_submaps, "cpu")
+    tckpt.save_checkpoint(path, state, atlas=atlas, kf_insertions=3)
+    back, kf_ins = tckpt.load_checkpoint_atlas(path, cfg, "cpu")
+    assert kf_ins == 3 and back.count == 0
+    for a, b in zip(back[:5], atlas[:5]):
+        assert torch.equal(a, b)
+    tckpt.save_checkpoint(path, state)
+    assert tckpt.load_checkpoint_atlas(path, cfg, "cpu") == (None, 0)

@@ -82,6 +82,10 @@ def test_cli_chunked_checkpoint_and_resume(tmp_path, capsys):
                  id="args4-dense mapping"),
     (["--viewer", "rerun"], "viewer"),
     (["--source", "zmq"], "unknown --source"),
+    (["--dense-submaps", "2"], "--dense-submaps requires --dense"),
+    (["--dense-icp", "rescue"], "--dense-icp requires --dense"),
+    (["--dense", "--dense-icp", "rescue", "--chunk", "4", "--ba", "off"],
+     "per-frame path only"),
 ])
 def test_cli_refuses_what_the_reference_refuses_or_is_not_ported(
         args, message, capsys):

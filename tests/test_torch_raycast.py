@@ -221,7 +221,7 @@ def test_slam_render_view_and_map_consistency_match_reference():
     assert int(hit.sum()) > 1000 and r.depth.shape == (240, 320)
     assert float(r.depth.max()) > 0.5
     vol = convert.tsdf_to_numpy(s.tsdf)
-    q, t, depth = s._last_kf_view
+    q, t, depth, _ = s._last_kf_view
     intr = (s.intr.fx, s.intr.fy, s.intr.cx, s.intr.cy)
     j, tt = both_renders(vol, q, t, cfg.dense, intr, 240, 320)
     for a, b in zip(tt, r):

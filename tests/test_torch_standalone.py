@@ -27,12 +27,13 @@ REPO = Path(__file__).resolve().parent.parent
 @pytest.mark.parametrize("extra", [
     [], ["--chunk", "4", "--ba", "off"],
     ["--loop", "--reloc", "2", "--cull", "--chunk", "4", "--ba", "async"],
-    ["--dense", "--chunk", "4", "--ba", "off"]])
+    ["--dense", "--chunk", "4", "--ba", "off"],
+    ["--dense", "--dense-submaps", "2", "--dense-icp", "rescue"]])
 def test_package_alone_runs_its_cli(tmp_path, extra):
     """Per frame, and through the chunked executor (``--chunk 4``), which
     also imports streaming, io.checkpoint and io.tum's neighbours; with
-    loop closure, relocalization and culling on; and with dense
-    mapping."""
+    loop closure, relocalization and culling on; with dense mapping; and
+    with the submap atlas and dense ICP."""
     shutil.copytree(REPO / "kbslam_torch", tmp_path / "kbslam_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

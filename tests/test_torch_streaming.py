@@ -361,9 +361,11 @@ def test_chunked_async_matches_reference():
 
 
 def test_unported_options_raise():
-    """The submap atlas and dense ICP raise naming ROADMAP, in both
-    shells; the monolithic volume, culling, loop closure and
-    relocalization are ported and accepted."""
+    """What the shells still refuse, as the reference does: dense ICP
+    without dense mapping or with an unknown mode, and dense ICP on the
+    chunked path (``ValueError``). The monolithic volume, the submap
+    atlas, dense ICP per frame, culling, loop closure and relocalization
+    are ported and accepted."""
     import dataclasses
 
     seq_K = np.array([[200.0, 0, 80], [0, 200, 60], [0, 0, 1]])
@@ -373,14 +375,25 @@ def test_unported_options_raise():
                                                     submap_every=2))
     icp = dense.replace(dense_icp=dataclasses.replace(base.dense_icp,
                                                       mode="rescue"))
-    for cfg in (atlas, icp):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    no_dense = base.replace(dense_icp=icp.dense_icp)
+    bad_mode = dense.replace(dense_icp=dataclasses.replace(base.dense_icp,
+                                                           mode="polish"))
+    for cfg, message in ((icp, "per-frame path only"),
+                         (no_dense, "requires dense.enabled"),
+                         (bad_mode, "unknown dense_icp.mode")):
+        with pytest.raises(ValueError, match=message):
             TStream(cfg, TIntr.from_matrix(seq_K), t_init(base, "cpu"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for cfg, message in ((no_dense, "requires dense.enabled"),
+                         (bad_mode, "unknown dense_icp.mode")):
+        with pytest.raises(ValueError, match=message):
             SLAM(cfg, seq_K, device="cpu")
     assert TStream(dense, TIntr.from_matrix(seq_K),
                    t_init(base, "cpu")).tsdf is not None
     assert SLAM(dense, seq_K, device="cpu").tsdf is not None
+    assert TStream(atlas, TIntr.from_matrix(seq_K),
+                   t_init(base, "cpu")).atlas is not None
+    assert SLAM(atlas, seq_K, device="cpu").atlas is not None
+    assert SLAM(icp, seq_K, device="cpu")._icp is not None
     ported = base.replace(cull=dataclasses.replace(base.cull, enabled=True),
                           loop=dataclasses.replace(base.loop, enabled=True,
                                                    reloc_after=3))
