@@ -146,12 +146,47 @@ non-zero):
                 mask blackout of tests/test_dense_icp.py:118-163 at its
                 320x240 and at 640x480 with ``SLAMConfig()``'s ORB and map,
                 with the volume and with the atlas, held to that test's
-                gates; one ``dense_icp="refine"`` pass over the 60 frames.
-The dense stages, the atlas and the aligners are plain torch, not
-kernels of the kernels line. Then one JSON line about the kernels, the
-nvidia-smi line, and the result line. The describe kernel's launch count
-sums phases 5, 7 and 10, the relocalization attempts of phase 14, phase
-16's dense SLAM run and phase 17's atlas SLAM run. In phase 10 the
+                gates; one ``dense_icp="refine"`` pass over the 60 frames;
+ 18. global_ba — BASELINE.json config 5 (200 cameras, 50,000 landmarks,
+                102,400 observations, built as benchmarks/
+                global_ba_stress.py:40-99 builds it): one guarded solve
+                (4 LM rounds, PCG cap 25, tol 1e-2) on the card after a
+                warm-up, under sync debug mode "error", against the same
+                solve on the CPU (equal ``accepted`` and ``retries``, PCG
+                trips within +-1 per round, the first round's cost within
+                1e-3, both monotone to below 1e-2 of the start; later
+                rounds' gaps printed beside the CPU's own under a 1e-7 m
+                nudge), then captured and replayed bit-equal to the eager
+                solve; prints device ms of a replay, kernel launches, host
+                ms, peak memory, the landmark error and the live and
+                masked PCG trips; then ``SLAM.run_global_ba`` on phase 7's
+                map (monotone, the gauge keyframe bit-unchanged, the
+                refined ATE beside phase 7's);
+ 19. multistream — BASELINE.json config 4: 8 streams of 640x480
+                (``render_sequence`` seeds 0-7, 33 frames) at
+                ``SLAMConfig()`` through ``make_multistream_step`` (one CUDA
+                graph per stream, replayed on side streams, then serially:
+                the two bit-equal) and ``make_multistream_scan``
+                (apply_every 4, from frame 0's warm start): every stream
+                tracked with >= 50 inliers, streams 0 and 7 bit-equal to
+                their single-stream runs, tests/test_parallel.py:95-156's
+                deferred-scan gates, the describe kernel once per stream
+                per frame in every graph (torch.profiler); prints
+                aggregate frames/s and ms per step on side streams and
+                serially, immediate and deferred, the device busy share,
+                peak memory, phase 10's single-stream pace beside them;
+ 20. longrun  — tests/test_longrun.py on the card: 200 palindrome frames
+                of a 25-frame 120x160 sequence on a 6-keyframe,
+                512-landmark map with async BA and culling, through
+                ``SLAM`` and ``ChunkedStream`` (chunk 8), held to that
+                test's gates; prints the ring wraps, solves merged and
+                keyframes culled.
+The dense stages, the atlas, the aligners, global BA and the
+multistream shell are plain torch, not kernels of the kernels line. Then
+one JSON line about the kernels, the nvidia-smi line, and the result
+line. The describe kernel's launch count sums phases 5, 7 and 10, the
+relocalization attempts of phase 14, phase 16's dense SLAM run, phase
+17's atlas SLAM run and phase 19's runs. In phases 10 and 19 the
 wrapper's counter counts the eager calls (the warm-up before the capture
 and the tail; a call inside the capture launches nothing and is not
 counted), and the graph's replays, which no Python runs, add the
@@ -1940,6 +1975,510 @@ def submap_phase(dev, seq, smi, pace) -> int:
     return sub_launches
 
 
+# --- 18-20: global BA, multistream, the long run --------------------------
+
+GBA_CAMS, GBA_PTS, GBA_OBS = 200, 50_000, 512   # BASELINE.json config 5
+GBA_ROUNDS, GBA_PCG, GBA_TOL, GBA_RETRIES = 4, 25, 1e-2, 4
+MS_STREAMS, MS_FRAMES, MS_K = 8, 33, 4          # BASELINE.json config 4
+
+
+def global_ba_problem(seed=0, noise=0.01):
+    """Config 5 on the host, built as benchmarks/global_ba_stress.py:40-99
+    builds it: 50,000 landmarks along a 100 m corridor; 200 cameras sweep
+    past it, each observing 512 of the 4,000 landmarks nearest to it (a
+    sliding window of co-visibility), 102,400 observations; the initial
+    poses (but camera 0's, the gauge) and landmarks (but landmark 0, the
+    scale anchor) off by ``noise``. Returns (data on the CPU, intrinsics,
+    true landmarks)."""
+    from scipy.spatial.transform import Rotation
+
+    from kbslam_torch.ba.global_ba import GlobalBAData
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.geom.se3 import matrix_to_quat
+
+    rng = np.random.default_rng(seed)
+    n_cams, n_pts, per_cam = GBA_CAMS, GBA_PTS, GBA_OBS
+    fx = fy = 500.0
+    cx = cy = 320.0
+    pts = np.stack([np.linspace(0, 100, n_pts) + rng.normal(0, 0.1, n_pts),
+                    rng.uniform(-3, 3, n_pts), rng.uniform(4, 8, n_pts)],
+                   axis=1).astype(np.float32)
+    rots, ts, uvs, ids, active = [], [], [], [], []
+    for i in range(n_cams):
+        t = np.array([100.0 * i / n_cams, 0.0, 0.0], np.float32)
+        R = Rotation.from_rotvec([0, 0.002 * i, 0]).as_matrix().astype(
+            np.float32)
+        center = int(n_pts * i / n_cams)
+        cand = rng.choice(np.arange(max(0, center - 2000),
+                                    min(n_pts, center + 2000)),
+                          size=per_cam, replace=False)
+        pc = (pts[cand] - t) @ R
+        uvs.append(np.stack([fx * pc[:, 0] / pc[:, 2] + cx,
+                             fy * pc[:, 1] / pc[:, 2] + cy], -1))
+        active.append(pc[:, 2] > 0.5)
+        if i > 0:
+            dR = Rotation.from_rotvec(rng.normal(scale=noise,
+                                                 size=3)).as_matrix()
+            R = (R @ dR).astype(np.float32)
+            t = t + rng.normal(scale=noise, size=3).astype(np.float32)
+        rots.append(R)
+        ts.append(t)
+        ids.append(cand.astype(np.int32))
+    mp_pos = pts + rng.normal(scale=noise, size=pts.shape).astype(np.float32)
+    mp_pos[0] = pts[0]
+    cam_free = np.ones(n_cams, bool)
+    cam_free[0] = False
+    zeros = torch.zeros((n_cams, per_cam))
+
+    def t_(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(a), dtype))
+
+    data = GlobalBAData(
+        cam_q=matrix_to_quat(t_(rots)), cam_t=t_(ts),
+        obs_uv=t_(uvs, np.float32), mp_id=t_(ids), active=t_(active),
+        w_z=zeros + 1.0, z_meas=zeros.clone(), w_d=zeros.clone(),
+        cam_free=torch.from_numpy(cam_free), mp_pos=torch.from_numpy(mp_pos),
+        anchor_mp=torch.zeros((), dtype=torch.int32))
+    return data, Intrinsics.create(fx, fy, cx, cy), pts
+
+
+def global_ba_phase(dev, smi, slam7, seq, ate7):
+    """(18) Config 5: one guarded solve (4 rounds, PCG cap 25, tol 1e-2)
+    on the card against the port's CPU path, sync-checked, then captured
+    and replayed; then ``SLAM.run_global_ba`` on phase 7's map.
+
+    The problem leaves many landmarks seen by one or two cameras, whose
+    3x3 blocks are near singular (held by the 1e-8 floor), so float32
+    rounding moves the iterates from the first round on: the CPU against
+    itself with the landmarks moved by 1e-7 m drifts ~2e-4, 1e-3, 1e-2
+    and 6e-2 in the cost of rounds 1-4. So the card is held to the CPU by
+    equal ``accepted`` and ``retries``, PCG trips within +-1 per round
+    and the first round's cost within 1e-3; every round's gap is printed
+    beside the CPU's own, and both runs must descend monotonically to
+    below 1e-2 of the start."""
+    from kbslam_torch.ba import global_ba as gba
+    from kbslam_torch.device import CapturedCall
+    from kbslam_torch.eval import trajectory
+    from kbslam_torch.mapping.state import window_slots
+
+    t0 = time.perf_counter()
+    data_cpu, intr, pts = global_ba_problem()
+    build_s = time.perf_counter() - t0
+    data = gba.GlobalBAData(*(x.to(dev) for x in data_cpu))
+    n_obs = int(data_cpu.active.sum())
+
+    def solve(d):
+        return gba.global_ba_solve(d, intr, iters=GBA_ROUNDS,
+                                   pcg_iters=GBA_PCG, pcg_tol=GBA_TOL,
+                                   max_retries=GBA_RETRIES, return_stats=True)
+
+    solve(data)             # warm-up: library handles, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out, costs, stats = solve(data)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    end_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    t0 = time.perf_counter()
+    ref, ref_costs, ref_stats = solve(data_cpu)
+    cpu_s = time.perf_counter() - t0
+    # the CPU against itself, the landmarks moved by 1e-7 m: how far
+    # float32 rounding alone moves each round (see the docstring)
+    g = torch.Generator().manual_seed(0)
+    nudged = solve(data_cpu._replace(mp_pos=data_cpu.mp_pos + 1e-7 * torch.randn(
+        data_cpu.mp_pos.shape, generator=g)))[1].numpy()
+    c, rc = costs.cpu().numpy(), ref_costs.numpy()
+    pcg, rpcg = stats.pcg_iters.cpu().numpy(), ref_stats.pcg_iters.numpy()
+    rel = np.abs(c - rc) / np.abs(rc)
+    rel_cpu = np.abs(nudged - rc) / np.abs(rc)
+    if not (torch.equal(stats.accepted.cpu(), ref_stats.accepted)
+            and torch.equal(stats.retries.cpu(), ref_stats.retries)
+            and (np.abs(pcg - rpcg) <= 1).all() and rel[1] <= 1e-3):
+        raise AssertionError(
+            f"global BA card != CPU: costs {c} vs {rc}, accepted "
+            f"{stats.accepted.tolist()} vs {ref_stats.accepted.tolist()}, "
+            f"retries {stats.retries.tolist()} vs {ref_stats.retries.tolist()}"
+            f", PCG {pcg} vs {rpcg}")
+    for what, x in (("card", c), ("CPU", rc)):
+        if not (np.isfinite(x).all() and (np.diff(x) <= 0).all()
+                and x[-1] < 1e-2 * x[0]):
+            raise AssertionError(f"global BA costs on the {what}: {x}")
+
+    graphed = CapturedCall(solve, data)
+    got = graphed(data)
+    torch.cuda.synchronize()
+    mine = list(out) + [costs] + list(stats)
+    theirs = list(got[0]) + [got[1]] + list(got[2])
+    if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+        raise AssertionError("the replayed global BA != the eager solve")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = []
+    for _ in range(3):
+        start.record()
+        graphed.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        reps.append(start.elapsed_time(end))
+    graph_ms = float(np.median(reps))
+    g_launch, nodes, kern_ms, _, _, top = _replay_profile(graphed.graph)
+    err = np.linalg.norm(out.mp_pos.cpu().numpy() - pts, axis=1)
+    live = int(pcg.sum())
+    total = GBA_ROUNDS * GBA_RETRIES * GBA_PCG
+    print(f"[global_ba] config 5: {GBA_CAMS} cameras, {GBA_PTS} landmarks, "
+          f"{GBA_CAMS * GBA_OBS} observations ({n_obs} in front), built in "
+          f"{build_s:.2f} s; {GBA_ROUNDS} LM rounds, PCG cap {GBA_PCG}, tol "
+          f"{GBA_TOL}: cost {[round(float(x), 3) for x in c]} (CPU "
+          f"{[round(float(x), 3) for x in rc]}; relative gap per round "
+          f"{[float(f'{x:.2e}') for x in rel[1:]]}, the CPU against itself "
+          f"with the landmarks moved by 1e-7 m "
+          f"{[float(f'{x:.2e}') for x in rel_cpu[1:]]}), accepted "
+          f"{stats.accepted.tolist()}, retries "
+          f"{stats.retries.tolist()} (equal on the CPU), PCG trips per round "
+          f"{pcg.tolist()} (CPU {rpcg.tolist()}); live PCG trips {live}, "
+          f"masked {total - live} of {total}; landmark error median "
+          f"{np.median(err) * 1e3:.3f} mm (start "
+          f"{np.median(np.linalg.norm(data_cpu.mp_pos.numpy() - pts, axis=1)) * 1e3:.3f}"
+          f" mm); 0 host syncs in the solve (sync debug mode 'error'); "
+          f"device {graph_ms:.2f} ms per solve (replays of the captured "
+          f"solve, CUDA events; {[round(r, 2) for r in reps]}), the replay "
+          f"bit-equal to the eager solve; {nodes} kernel launches and "
+          f"{kern_ms:.2f} ms kernel time per solve (torch.profiler, "
+          f"{g_launch} graph launch); host {host_ms:.1f} ms to enqueue "
+          f"the eager solve, {end_ms:.1f} ms to its end; peak device "
+          f"memory {peak_gb:.3f} GB; CPU solve {cpu_s:.1f} s; kernels with "
+          f"the most device time {top}; {smi}", flush=True)
+
+    # SLAM.run_global_ba on phase 7's map: the oldest real keyframe is
+    # the gauge
+    m = slam7.state.map
+    n_cams = min(int(m.num_kf), m.capacity_kf)
+    slots, _, real = window_slots(m, n_cams)
+    g = int(slots[int(torch.argmax(real.to(torch.int32)))])
+    gauge = (m.kf_q[g].clone(), m.kf_t[g].clone())
+    t0 = time.perf_counter()
+    run_costs = slam7.run_global_ba()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    m = slam7.state.map
+    rc = np.asarray(run_costs)
+    if not (np.isfinite(rc).all() and (np.diff(rc) <= 0).all()):
+        raise AssertionError(f"SLAM.run_global_ba costs {run_costs}")
+    if not (torch.equal(m.kf_q[g], gauge[0])
+            and torch.equal(m.kf_t[g], gauge[1])):
+        raise AssertionError("SLAM.run_global_ba moved the gauge keyframe")
+    gt = seq.poses[:, :3, 3]
+    ate_ref = trajectory.ate_rmse(slam7.refined_trajectory()[:, :3, 3], gt)
+    print(f"[global_ba] SLAM.run_global_ba on phase 7's map ({n_cams} "
+          f"keyframes, 640x480): cost {[round(x, 3) for x in run_costs]}, "
+          f"the gauge keyframe (slot {g}) bit-unchanged, {run_ms:.1f} ms "
+          f"with its host reads; refined ATE {ate_ref * 1e3:.2f} mm (phase "
+          f"7: online {ate7[0] * 1e3:.2f} mm, refined by local BA "
+          f"{ate7[1] * 1e3:.2f} mm); {smi}", flush=True)
+
+
+def _render_streams(n, frames):
+    """n sequences of 640x480 (seeds 0..n-1), rendered in n processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from kbslam_torch.io.synthetic import render_sequence
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(n, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        futs = [pool.submit(render_sequence, num_frames=frames, height=480,
+                            width=640, seed=s) for s in range(n)]
+        return [f.result() for f in futs]
+
+
+def _kernel_sum(fn):
+    """One call of ``fn`` under torch.profiler: (summed kernel ms,
+    kernels). Kernels that overlap on side streams add up here."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.device_time for e in kernels) / 1e3, len(kernels)
+
+
+def multistream_phase(dev, smi, pace) -> int:
+    """(19) Config 4: 8 streams of 640x480 at SLAMConfig(), immediate and
+    deferred (apply_every 4), side streams and serial. Returns the
+    describe launches of the runs."""
+    from kbslam_torch import config
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.ops import describe as describe_ops
+    from kbslam_torch.parallel.multistream import (batched_init_state,
+                                                   make_multistream_scan,
+                                                   make_multistream_step,
+                                                   stream_state)
+    from kbslam_torch.pipeline import init_state, track_step
+    from kbslam_torch.pnp.ransac import hash_sampler
+    from kbslam_torch.streaming import clone_state
+
+    S, T, K = MS_STREAMS, MS_FRAMES, MS_K
+    t0 = time.perf_counter()
+    seqs = _render_streams(S, T)
+    render_s = time.perf_counter() - t0
+    cfg = config.SLAMConfig()
+    intr = Intrinsics.from_matrix(seqs[0].K)
+    rgb = torch.from_numpy(np.stack([np.stack([s.rgb[t] for s in seqs])
+                                     for t in range(T)])).pin_memory()
+    dep = torch.from_numpy(np.stack([np.stack([s.depth[t] for s in seqs])
+                                     for t in range(T)]).astype(np.int32)
+                           ).pin_memory()
+    del seqs
+    describe_ops.reset_launches()
+
+    def leaves(st):
+        return list(st.map) + list(st[1:])
+
+    # immediate insertion: side streams (the first call captures), then
+    # the same frames replayed serially on one stream
+    step = make_multistream_step(cfg, intr, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs = {}
+    for serial in (False, True):
+        state, outs, begins, ends = batched_init_state(cfg, S, dev), [], [], []
+        for t in range(T):
+            begins.append(torch.cuda.Event(enable_timing=True))
+            begins[-1].record()
+            state, out = step(state, rgb[t], dep[t], serial=serial)
+            outs.append(out)
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+            if t == 0 and not serial:
+                warm = clone_state(state)
+        torch.cuda.synchronize()
+        # steps 2..T on the device's clock, and the time the stream
+        # waited between one step's end and the next one's first copy
+        total = ends[0].elapsed_time(ends[-1])
+        idle = sum(ends[t - 1].elapsed_time(begins[t]) for t in range(1, T))
+        runs[serial] = (outs, clone_state(state), total / (T - 1),
+                        1.0 - idle / total)
+        if not serial:
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    outs, final, ms_side, busy_side = runs[False]
+    ms_serial, busy_serial = runs[True][2:]
+    if not (all(torch.equal(a, b) for o1, o2 in zip(outs, runs[True][0])
+                for a, b in zip(o1, o2))
+            and all(torch.equal(a, b) for a, b in
+                    zip(leaves(final), leaves(runs[True][1])))):
+        raise AssertionError("multistream: serial replays != side streams")
+    ok = torch.stack([o.success for o in outs[1:]]).cpu()
+    inl = torch.stack([o.num_inliers for o in outs[1:]]).cpu()
+    if not (ok.all() and (inl >= MIN_INLIERS).all()):
+        raise AssertionError(f"multistream: a stream failed or fell under "
+                             f"{MIN_INLIERS} inliers: min {inl.min(0)}")
+    kfs = final.map.num_kf.cpu()
+    if not (kfs >= 2).all():
+        raise AssertionError(f"multistream keyframes {kfs.tolist()}")
+
+    # two streams against their single-stream runs (the same draws)
+    for i in (0, S - 1):
+        st = init_state(cfg, dev)
+        for t in range(T):
+            st, o = track_step(st, rgb[t, i].to(dev), dep[t, i].to(dev), None,
+                               intr, cfg,
+                               hash_sampler(0, st.frame_count * S + i))
+            if not all(torch.equal(a, b[i]) for a, b in zip(o, outs[t])):
+                raise AssertionError(f"stream {i} frame {t} != its "
+                                     "single-stream run")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(leaves(st), leaves(stream_state(final, i)))):
+            raise AssertionError(f"stream {i}'s state != its single run")
+
+    # deferred insertion from the warm start (frame 0), K frames a block
+    scan = make_multistream_scan(cfg, intr, S, apply_every=K)
+    n = T - 1
+    res = {}
+    for name, serial in (("capture", False), ("side", False),
+                         ("serial", True)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st_d, ninl_d = scan(clone_state(warm), rgb[1:], dep[1:],
+                            serial=serial)
+        end.record()
+        torch.cuda.synchronize()
+        res[name] = (clone_state(st_d), ninl_d.clone(),
+                     start.elapsed_time(end) / n)
+    st_d, ninl_d, _ = res["side"]
+    for other in ("capture", "serial"):
+        if not (torch.equal(ninl_d, res[other][1])
+                and all(torch.equal(a, b) for a, b in
+                        zip(leaves(st_d), leaves(res[other][0])))):
+            raise AssertionError(f"deferred scan: {other} run != side")
+    ninl_d = ninl_d.cpu().numpy()
+    ninl_i = inl.numpy()
+    kfs_d, kfs_i = st_d.map.num_kf.cpu().numpy(), kfs.numpy()
+    ok_d, ok_i = (ninl_d[2:] > 0).mean(), (ninl_i[2:] > 0).mean()
+    if not ((kfs_d >= 2).all() and (np.abs(kfs_d - kfs_i) <= 1).all()
+            and (st_d.map.num_mp > 0).all() and ok_d >= ok_i - 0.15
+            and ninl_d[2:].mean() >= 0.7 * ninl_i[2:].mean()):
+        raise AssertionError(
+            f"deferred scan gates: keyframes {kfs_d} vs {kfs_i}, tracked "
+            f"{ok_d} vs {ok_i}, inliers {ninl_d[2:].mean()} vs "
+            f"{ninl_i[2:].mean()}")
+
+    # the describe kernel: once per stream per frame in every graph
+    n_step = _replay_profile(step.streams._graphs[0])[3]
+    n_block = _replay_profile(scan.streams._graphs[0])[3]
+    if (n_step, n_block) != (1, K):
+        raise AssertionError(f"describe kernels per graph: step {n_step}, "
+                             f"block {n_block} (expected 1, {K})")
+    eager = describe_ops.launches
+    summed, n_kern = _kernel_sum(lambda: step(final, rgb[-1], dep[-1]))
+    launches = (eager + step.streams.replays * S * n_step
+                + scan.streams.replays * S * n_block)
+    ms_d_side, ms_d_serial = res["side"][2], res["serial"][2]
+    print(f"[multistream] config 4: {S} streams of 640x480 (seeds 0-{S - 1},"
+          f" rendered in {render_s:.1f} s), SLAMConfig(), {T} frames each: "
+          f"every stream tracked with >= {MIN_INLIERS} inliers after frame 0"
+          f" (min {int(inl.min())}), keyframes {kfs.tolist()}; streams 0 and "
+          f"{S - 1} bit-equal to their single-stream runs, the serial replays"
+          f" bit-equal to the side streams; immediate: {ms_side:.2f} ms per "
+          f"step of all {S} streams on side streams = "
+          f"{S * 1e3 / ms_side:.1f} frames/s, serial {ms_serial:.2f} ms = "
+          f"{S * 1e3 / ms_serial:.1f} frames/s (CUDA events, steps 2-{T}); "
+          f"device busy {busy_side:.1%} of the side-stream run and "
+          f"{busy_serial:.1%} of the serial one (the rest: the stream idle "
+          f"between steps, CUDA events); one step: {n_kern} kernels, "
+          f"{summed:.2f} ms summed kernel time (torch.profiler; kernels that "
+          f"overlap add up); "
+          f"deferred (apply_every {K}, from frame 0's warm start, frames "
+          f"1-{T - 1}): keyframes {kfs_d.tolist()} (immediate "
+          f"{kfs_i.tolist()}), tracked {ok_d:.3f} (immediate {ok_i:.3f}), "
+          f"mean inliers {ninl_d[2:].mean():.1f} (immediate "
+          f"{ninl_i[2:].mean():.1f}); {ms_d_side:.2f} ms per frame of all "
+          f"{S} streams on side streams = {S * 1e3 / ms_d_side:.1f} frames/s,"
+          f" serial {ms_d_serial:.2f} ms = {S * 1e3 / ms_d_serial:.1f} "
+          f"frames/s (first run, with the captures, "
+          f"{res['capture'][2]:.2f} ms); phase 10's single stream "
+          f"{pace['ms_frame']:.2f} ms/frame = {1e3 / pace['ms_frame']:.1f} "
+          f"frames/s; peak device memory of the immediate run "
+          f"{peak_gb:.3f} GB; describe launches {launches} = {eager} eager "
+          f"(warm-ups, single-stream runs) + {step.streams.replays} step "
+          f"replays x {S} x {n_step} + {scan.streams.replays} block replays "
+          f"x {S} x {n_block}; {smi}", flush=True)
+    return launches
+
+
+class _CountedCull:
+    """Wraps a shell's keyframe cull: keyframes culled, read on the
+    host after each call."""
+
+    def __init__(self, fn):
+        self.fn, self.culled = fn, 0
+
+    def __call__(self, m):
+        before = int((m.kf_id >= 0).sum())
+        m = self.fn(m)
+        self.culled += before - int((m.kf_id >= 0).sum())
+        return m
+
+
+def longrun_phase(dev, smi):
+    """(20) tests/test_longrun.py on the card: 200 palindrome frames of
+    a 25-frame 120x160 sequence on a 6-keyframe, 512-landmark map with
+    async BA (window 3, 5 trips) and culling, through SLAM and through
+    ChunkedStream (chunk 8), held to that test's gates."""
+    import dataclasses
+
+    from kbslam_torch import config
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.io.synthetic import render_sequence
+    from kbslam_torch.pipeline import init_state
+    from kbslam_torch.slam import SLAM
+    from kbslam_torch.streaming import ChunkedStream
+
+    seq = render_sequence(num_frames=25, height=120, width=160, fx=130.0)
+    order = list(range(25)) + list(range(23, 0, -1))
+    frames = [order[i % len(order)] for i in range(200)]
+    cfg = config.SLAMConfig(
+        image_height=120, image_width=160,
+        orb=config.OrbConfig(num_features=256, num_levels=3,
+                             max_features=256),
+        pnp=config.PnPConfig(num_hypotheses=64),
+        map=config.MapConfig(max_keyframes=6, max_map_points=512),
+        ba=config.BAConfig(window=3, compact_obs=512, compact_landmarks=512,
+                           max_iterations=5))
+    cfg = cfg.replace(cull=dataclasses.replace(cfg.cull, enabled=True))
+    cap_kf, cap_mp = cfg.map.max_keyframes, cfg.map.max_map_points
+
+    def gates(what, n_success, n_kf, m, max_t, stats):
+        finite = all(bool(torch.isfinite(a).all())
+                     for a in (m.kf_q, m.kf_t, m.mp_pos))
+        num_mp = int(m.num_mp)
+        if not (n_success > 150 and n_kf > 12 and num_mp > 100 and finite
+                and max_t < 10.0 and len(stats) >= 3
+                and all(np.isfinite(s["final_cost"]) for s in stats)):
+            raise AssertionError(
+                f"longrun {what}: {n_success} tracked, {n_kf} keyframes, "
+                f"{num_mp} landmarks, finite {finite}, max |t| {max_t} m, "
+                f"{len(stats)} solves")
+        return num_mp
+
+    slam = SLAM(cfg, seq.K, ba_mode="async", use_mask=False, device=dev)
+    slam._cull = _CountedCull(slam._cull)
+    t0 = time.perf_counter()
+    for j in frames:
+        slam.process(seq.rgb[j], seq.depth[j])
+    slam.finish()
+    wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+    d = slam.diagnostics
+    n_kf = slam.num_keyframes
+    max_t = float(np.abs(np.stack(slam.frame_poses)[:, :3, 3]).max())
+    num_mp = gates("per frame", sum(x["success"] for x in d), n_kf,
+                   slam.state.map, max_t, slam.ba_stats)
+    merged = sum(x["ran_ba"] for x in d)
+    print(f"[longrun] per frame, {len(frames)} palindrome frames of 25 at "
+          f"120x160, ring of {cap_kf} keyframes and {cap_mp} landmarks, async"
+          f" BA and cull: {sum(x['success'] for x in d)} tracked, {n_kf} "
+          f"keyframes (the ring wrapped {n_kf // cap_kf} times), {num_mp} "
+          f"landmarks (the landmark ring wrapped {num_mp // cap_mp} times), "
+          f"{len(slam.ba_stats)} solves ({merged} merged while tracking), "
+          f"{slam._cull.culled} keyframes culled, max |t| {max_t:.3f} m, "
+          f"state finite; {wall:.1f} ms/frame; {smi}", flush=True)
+
+    cs = ChunkedStream(cfg, Intrinsics.from_matrix(seq.K),
+                       init_state(cfg, dev), chunk=8, ba_mode="async")
+    cs._cull = _CountedCull(cs._cull)
+    got = []
+    t0 = time.perf_counter()
+    for j in frames:
+        got += cs.feed(seq.rgb[j], seq.depth[j])
+    got += cs.flush()
+    wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+    if len(got) != len(frames):
+        raise AssertionError(f"longrun chunked: {len(got)} results")
+    n_kf = sum(r["added_kf"] for r in got)
+    max_t = float(np.abs(np.stack([r["pose_t"] for r in got])).max())
+    num_mp = gates("chunked", sum(r["success"] for r in got), n_kf,
+                   cs.state.map, max_t, cs.ba_stats)
+    print(f"[longrun] chunked (chunk 8, {cs.replays} graph replays): "
+          f"{sum(r['success'] for r in got)} tracked, {n_kf} keyframes (the "
+          f"ring wrapped {n_kf // cap_kf} times), {num_mp} landmarks (the "
+          f"landmark ring wrapped {num_mp // cap_mp} times), "
+          f"{len(cs.ba_stats)} solves merged, {cs._cull.culled} keyframes "
+          f"culled, max |t| {max_t:.3f} m, state finite; {wall:.1f} ms/frame;"
+          f" {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2158,6 +2697,15 @@ def main() -> int:
 
     # 17. the submap atlas and dense ICP
     launches["describe_keypoints"] += submap_phase(dev, seq, smi, pace)
+
+    # 18. global BA at config 5, and on phase 7's map
+    global_ba_phase(dev, smi, slam, seq, (ate, ate_ref))
+
+    # 19. multistream tracking at config 4
+    launches["describe_keypoints"] += multistream_phase(dev, smi, pace)
+
+    # 20. tests/test_longrun.py on the card
+    longrun_phase(dev, smi)
 
     ref_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "kbslam") + os.sep

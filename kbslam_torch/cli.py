@@ -18,6 +18,9 @@ same flags, validation errors and summary JSON keys:
   instead, a new submap every K keyframe insertions), ``--dense-icp
   {off,rescue,refine}`` (frame-to-model tracking, per frame only),
   ``--save-surface``, ``--save-mesh``;
+- ``--global-ba``: one guarded global bundle adjustment over the whole
+  keyframe ring at the end of the run (``ba/global_ba.py``), per frame
+  and with ``--chunk``;
 - ``--mask``, ``--dist``, ``--depth-edge-rel``, ``--save-trajectory``,
   ``--save-checkpoint`` (with the volume or the atlas), ``--resume``
   (restores it) and ``--eval``.
@@ -152,6 +155,11 @@ def _icp_summary(summary, shell):
             1 for e in shell.icp_events if e["mode"] == mode and e["accepted"])
 
 
+def _global_ba_cost_line(costs):
+    print(f"global BA cost: {costs[0]:.2f} -> {costs[-1]:.2f}",
+          file=sys.stderr)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser("kbslam_torch")
     ap.add_argument("--source", default="synthetic",
@@ -160,6 +168,8 @@ def main(argv=None):
     ap.add_argument("--ba", choices=["on", "async", "off"], default="on",
                     help="local bundle adjustment after each keyframe, "
                     "overlapped with tracking, or none")
+    ap.add_argument("--global-ba", action="store_true",
+                    help="run a full-map bundle adjustment at the end")
     ap.add_argument("--mask", action="store_true",
                     help="apply static-element masks (reference mask path)")
     ap.add_argument("--width", type=int, default=640)
@@ -288,6 +298,8 @@ def main(argv=None):
                   f"{d['wall_ms']:.1f} ms", file=sys.stderr)
         n += 1
     slam.finish()
+    if args.global_ba:
+        _global_ba_cost_line(slam.run_global_ba())
 
     est = np.stack(slam.frame_poses)
     summary = dict(
@@ -307,8 +319,9 @@ def main(argv=None):
         rc = slam.map_consistency()
         _dense_summary(summary, args, slam, rc)
     if args.eval and len(gts) == n and n > 1:
+        # with any solver: the local BA or the end-of-run global one
         _evaluate(summary, est, gts, slam.refined_trajectory()
-                  if mode != "disabled" else None)
+                  if mode != "disabled" or args.global_ba else None)
     if args.save_checkpoint:
         from kbslam_torch.io.checkpoint import save_checkpoint
 
@@ -328,8 +341,9 @@ def _run_chunked(args, cfg, K, frames, dist):
     from kbslam_torch.device import pick_device
     from kbslam_torch.geom.camera import Intrinsics
     from kbslam_torch.pipeline import init_state
-    from kbslam_torch.slam import pose_T, refine_frame_poses
-    from kbslam_torch.streaming import ChunkedStream
+    from kbslam_torch.slam import (pose_T, refine_frame_poses,
+                                   run_global_ba_on_map)
+    from kbslam_torch.streaming import ChunkedStream, assign_state
 
     device = pick_device(args.device)
     print(f"kbslam_torch: device {device}", file=sys.stderr)
@@ -356,6 +370,11 @@ def _run_chunked(args, cfg, K, frames, dist):
         n += 1
     results += cs.flush()
     wall = time.perf_counter() - t0
+    if args.global_ba:
+        new_map, costs = run_global_ba_on_map(cs.state.map, intr, cfg.ba)
+        # into the stream's own buffers (on CUDA the graph's)
+        assign_state(cs.state, cs.state._replace(map=new_map))
+        _global_ba_cost_line(costs)
 
     est = [pose_T(r["pose_q"], r["pose_t"]) for r in results]
     est = np.stack(est) if est else np.zeros((0, 4, 4))
@@ -380,7 +399,7 @@ def _run_chunked(args, cfg, K, frames, dist):
         _dense_summary(summary, args, cs, rc)
     if args.eval and len(gts) == n and n > 1:
         refined = None
-        if cs.ba_stats:
+        if cs.ba_stats or args.global_ba:
             anchors = [(r["anchor_id"], pose_T(r["anchor_q"], r["anchor_t"]))
                        for r in results]
             refined = refine_frame_poses(list(est), anchors, cs.state.map)

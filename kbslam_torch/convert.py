@@ -9,13 +9,16 @@ field (``kbslam.mapping.state.MapState(**m._asdict())``).
 ``tuple_to_torch`` carries any other NamedTuple of arrays, such as the
 loop closure's ``PoseGraph``, ``LoopCandidate`` and ``LoopConstraint``;
 ``tsdf_to_torch`` and ``tsdf_to_numpy`` carry the dense volume,
-``atlas_to_torch`` and ``atlas_to_numpy`` the submap atlas.
+``atlas_to_torch`` and ``atlas_to_numpy`` the submap atlas, and
+``global_ba_data_to_torch`` and ``global_ba_data_to_numpy`` a global BA
+problem.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from kbslam_torch.ba.global_ba import GlobalBAData
 from kbslam_torch.mapping.dense import TSDFState
 from kbslam_torch.mapping.submap import SubmapAtlas
 from kbslam_torch.mapping.state import MapState
@@ -104,3 +107,24 @@ def atlas_to_numpy(atlas: SubmapAtlas) -> SubmapAtlas:
     which the JAX ``SubmapAtlas`` accepts field by field."""
     return SubmapAtlas(*(a.detach().cpu().numpy().copy() for a in atlas[:5]),
                        count=np.int32(atlas.count))
+
+
+_GBA_DTYPES = dict(mp_id=np.int32, active=bool, cam_free=bool,
+                   anchor_mp=np.int32)
+
+
+def global_ba_data_to_torch(data_np, device) -> GlobalBAData:
+    """A global BA problem of arrays (a JAX ``GlobalBAData`` after
+    ``jax.device_get``) as the port's: copies on ``device``, floats as
+    float32, ids as int32, masks as bool."""
+    return GlobalBAData(**{
+        name: torch.from_numpy(np.array(getattr(data_np, name),
+                                        _GBA_DTYPES.get(name, np.float32))
+                               ).to(device)
+        for name in GlobalBAData._fields})
+
+
+def global_ba_data_to_numpy(data: GlobalBAData) -> GlobalBAData:
+    """The port's problem as numpy arrays (copies), which the JAX
+    ``GlobalBAData`` accepts field by field."""
+    return GlobalBAData(*(a.detach().cpu().numpy().copy() for a in data))

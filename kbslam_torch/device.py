@@ -49,18 +49,22 @@ def upload(array, device: torch.device) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def graph_capture(graph: "torch.cuda.CUDAGraph"):
-    """``torch.cuda.graph(graph)`` with Python's garbage collector run
-    before the capture and switched off during it. A dead reference cycle
-    that holds another CUDA graph would otherwise be collected at some
-    allocation inside the capture; freeing that graph there is an
-    operation a capturing stream does not permit, and the capture fails.
-    """
+def graph_capture(graph: "torch.cuda.CUDAGraph",
+                  stream: Optional["torch.cuda.Stream"] = None):
+    """``torch.cuda.graph(graph, stream=stream)`` with Python's garbage
+    collector run before the capture and switched off during it. A dead
+    reference cycle that holds another CUDA graph would otherwise be
+    collected at some allocation inside the capture; freeing that graph
+    there is an operation a capturing stream does not permit, and the
+    capture fails. ``stream`` (default: torch's one capture stream) also
+    picks the cuBLAS workspace the graph bakes in, which torch keeps per
+    stream: graphs that replay at the same time need streams of their
+    own."""
     gc.collect()
     was_enabled = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             yield
     finally:
         if was_enabled:

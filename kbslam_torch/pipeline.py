@@ -10,8 +10,10 @@ With ``track_keyframes = NK > 1`` the frame is matched against a bank
 of the last NK keyframes, gathered by one ``index_select`` of their ring
 slots, with the bank's points in the world frame.
 
-Not ported yet (it raises ``NotImplementedError``): deferred insertion
-(``defer_insert``) — ROADMAP.md, "Slice A, left for later".
+With ``defer_insert=True`` the step leaves the map alone and returns
+what the insertion needs (``PendingInsert``); ``apply_pending`` inserts
+it later. The multistream scan (``parallel/multistream.py``) applies
+each stream's pending insertion once per block of frames.
 """
 from __future__ import annotations
 
@@ -29,8 +31,6 @@ from kbslam_torch.mapping.state import (MapState, create_map_points,
 from kbslam_torch.matching.hamming import MatchResult, knn2_ratio_match
 from kbslam_torch.ops.incidence import incidence_gather
 from kbslam_torch.pnp.ransac import Sampler, hash_sampler, ransac_pnp
-
-_LATER = "is not ported yet (ROADMAP.md, Slice A, left for later)"
 
 
 class TrackState(NamedTuple):
@@ -60,6 +60,59 @@ class TrackOutput(NamedTuple):
     anchor_id: torch.Tensor     # int (-1 = no keyframe yet)
     anchor_q: torch.Tensor      # [4]
     anchor_t: torch.Tensor      # [3]
+
+
+class PendingInsert(NamedTuple):
+    """A keyframe insertion captured at the frame that flagged it, to be
+    applied later (``apply_pending``); ``do`` False is a no-op. It lands
+    up to K - 1 frames late when applied once per K frames; frames in
+    between keep matching the previous keyframe."""
+
+    do: torch.Tensor        # [] bool: a keyframe was flagged
+    fresh: torch.Tensor     # [] bool: the map was empty (no fusion)
+    pose_q: torch.Tensor    # [4]
+    pose_t: torch.Tensor    # [3]
+    kp_xy: torch.Tensor     # [F, 2]
+    kp_depth: torch.Tensor  # [F]
+    kp_desc: torch.Tensor   # [F, 256] uint8
+    kp_valid: torch.Tensor  # [F] bool
+    fuse_idx: torch.Tensor  # [F] int32 match.best_idx against the last KF
+    fuse_ok: torch.Tensor   # [F] bool match.is_match against the last KF
+
+
+def empty_pending(cfg, device) -> PendingInsert:
+    """No insertion pending. Built by fill kernels alone (no copy from
+    the host), so it can be made inside a CUDA graph capture."""
+    F = cfg.orb.max_features
+    identity = SE3.identity(device=device)
+    return PendingInsert(
+        do=torch.zeros((), dtype=torch.bool, device=device),
+        fresh=torch.zeros((), dtype=torch.bool, device=device),
+        pose_q=identity.q, pose_t=identity.t,
+        kp_xy=torch.zeros((F, 2), device=device),
+        kp_depth=torch.zeros((F,), device=device),
+        kp_desc=torch.zeros((F, 256), dtype=torch.uint8, device=device),
+        kp_valid=torch.zeros((F,), dtype=torch.bool, device=device),
+        fuse_idx=torch.zeros((F,), dtype=torch.int32, device=device),
+        fuse_ok=torch.zeros((F,), dtype=torch.bool, device=device))
+
+
+def apply_pending(m: MapState, p: PendingInsert, intr: Intrinsics
+                  ) -> MapState:
+    """Insert one deferred keyframe and its landmarks, masked by
+    ``p.do`` as the immediate insertion is. The keypoints' response,
+    angle and level are not stored in the map, so they go in as zeros."""
+    zf = torch.zeros_like(p.kp_depth)
+    feats = orb.Features(xy=p.kp_xy, response=zf, angle=zf,
+                         level=torch.zeros_like(p.fuse_idx),
+                         valid=p.kp_valid, desc=p.kp_desc)
+    m = insert_keyframe(m, feats, p.kp_depth, SE3(p.pose_q, p.pose_t),
+                        do=p.do)
+    zi = torch.zeros_like(p.fuse_idx)
+    fuse = MatchResult(best_idx=p.fuse_idx, best_dist=zi, second_dist=zi,
+                       is_match=p.fuse_ok)
+    return create_map_points(m, fuse, intr.fx, intr.fy, intr.cx, intr.cy,
+                             do=p.do & ~p.fresh)
 
 
 def init_state(cfg, device) -> TrackState:
@@ -108,9 +161,9 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
                sampler: Sampler, defer_insert: bool = False):
     """One frame: rgb [H, W, 3] uint8, depth [H, W] int32, mask [H, W]
     (nonzero = keep) or None -> (new state, TrackOutput). ``sampler``
-    draws RANSAC's minimal sets (see kbslam_torch.pnp.ransac)."""
-    if defer_insert:
-        raise NotImplementedError(f"defer_insert {_LATER}")
+    draws RANSAC's minimal sets (see kbslam_torch.pnp.ransac). With
+    ``defer_insert`` the map is left as it is and a third element, the
+    ``PendingInsert``, is returned."""
     m = state.map
     empty = m.is_empty()
     feats, depth_kp = extract_frame(rgb, depth, mask, intr, cfg)
@@ -198,9 +251,17 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
     # fusion uses the matches against the previous-last keyframe only: the
     # first F rows of the bank
     fuse = MatchResult(*(f[:feats.capacity] for f in match))
-    new_map = insert_keyframe(m, feats, depth_kp, pose, do=do_insert)
-    new_map = create_map_points(new_map, fuse, intr.fx, intr.fy, intr.cx,
-                                intr.cy, do=do_insert & ~empty)
+    if defer_insert:
+        pending = PendingInsert(
+            do=do_insert, fresh=empty, pose_q=pose.q, pose_t=pose.t,
+            kp_xy=feats.xy, kp_depth=depth_kp, kp_desc=feats.desc,
+            kp_valid=feats.valid, fuse_idx=fuse.best_idx,
+            fuse_ok=fuse.is_match)
+        new_map = m
+    else:
+        new_map = insert_keyframe(m, feats, depth_kp, pose, do=do_insert)
+        new_map = create_map_points(new_map, fuse, intr.fx, intr.fy,
+                                    intr.cx, intr.cy, do=do_insert & ~empty)
 
     a_slot = new_map.last_slot()
     new_state = TrackState(
@@ -216,6 +277,8 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
         anchor_q=take_row(new_map.kf_q, a_slot),
         anchor_t=take_row(new_map.kf_t, a_slot),
     )
+    if defer_insert:
+        return new_state, out, pending
     return new_state, out
 
 

@@ -28,6 +28,10 @@ depth (``config.dense.enabled``: the monolithic TSDF volume of
 of ``mapping/submap.py``), the loop tick, and the asynchronous dispatch
 last, so a new solve sees the corrected map.
 
+``run_global_ba`` refines every keyframe of the ring and its landmarks
+with the guarded global bundle adjustment of ``ba/global_ba.py``, at the
+end of a run (the CLI's ``--global-ba``).
+
 With the atlas, fusion makes no host read: the anchor's id comes from a
 host count of insertions, and its current ring pose (or the stored one,
 when its ring slot was reallocated) is chosen on the device, so the
@@ -153,6 +157,28 @@ def map_point_positions(m) -> np.ndarray:
     live = (mp >= 0) & (mp >= int(m.num_mp) - P)
     slots = np.unique(mp[live]) % P
     return m.mp_pos.cpu().numpy()[slots] if len(slots) else np.zeros((0, 3))
+
+
+def run_global_ba_on_map(map_state, intr: Intrinsics, ba_cfg, steps: int = 5,
+                         pcg_iters: int = 30):
+    """A guarded global bundle adjustment over every keyframe of the ring
+    (``ba/global_ba.global_ba_solve``: ``steps`` LM rounds, PCG capped at
+    ``pcg_iters``), with the oldest real keyframe held fixed. Returns
+    (new map state, the per-round costs as floats). One host read of the
+    insertion count sizes the problem, and one of the costs ends it."""
+    from kbslam_torch.ba.global_ba import (from_map_state, global_ba_solve,
+                                           write_back)
+
+    # never wider than the ring: after a wrap, a wider window would
+    # alias one slot into two real rows (observations counted twice)
+    n_cams = max(min(int(map_state.num_kf), map_state.capacity_kf), 1)
+    data, slots, real = from_map_state(map_state, intr, ba_cfg, n_cams)
+    data, costs = global_ba_solve(data, intr, iters=steps,
+                                  pcg_iters=pcg_iters,
+                                  depth_rows=ba_cfg.depth_residuals,
+                                  huber_delta=ba_cfg.huber_delta)
+    return (write_back(map_state, data, slots, real),
+            [float(c) for c in costs.cpu().numpy()])
 
 
 def check_dense_config(config):
@@ -630,6 +656,16 @@ class SLAM(DenseViews):
             self._merge_inflight()
         if self._loop is not None:
             self._state = self._loop.tick(self._state, self._frame, None)
+
+    def run_global_ba(self, steps: int = 5, pcg_iters: int = 30) -> list:
+        """A global bundle adjustment over every keyframe of the ring
+        (``run_global_ba_on_map``), written into the live map; returns
+        the per-round costs."""
+        new_map, costs = run_global_ba_on_map(
+            self.state.map, self.intr, self.config.ba, steps=steps,
+            pcg_iters=pcg_iters)
+        self._state = self._state._replace(map=new_map)
+        return costs
 
     def refined_trajectory(self) -> np.ndarray:
         """Frame poses re-expressed against the BA-refined keyframes

@@ -436,3 +436,70 @@ def test_graphed_close_equals_the_eager_close(cuda_device):
     assert float((got.kf_t.cpu() - ref.kf_t).abs().max()) < 1e-4
     assert float((got.mp_pos.cpu() - ref.mp_pos).abs().max()) < 1e-4
     assert float((got.kf_t.cpu() - cpu.kf_t).abs().max()) > 1e-3
+
+
+def test_global_ba_on_the_card_graphed_and_against_the_cpu(cuda_device):
+    """The synthetic global problem: the solve makes no host sync, its
+    replay equals the eager solve bit for bit, and it agrees with the CPU
+    at a fixed trip count (costs within 1e-4 relative)."""
+    from kbslam_torch.ba import global_ba as gba
+    from kbslam_torch.device import CapturedCall
+
+    data, intr, _ = gba.make_synthetic_global_problem(
+        np.random.default_rng(0), "cpu")
+    dev = gba.GlobalBAData(*(x.to(cuda_device) for x in data))
+
+    def solve(d):
+        return gba.global_ba_solve(d, intr, iters=4, pcg_iters=3,
+                                   pcg_tol=0.0, return_stats=True)
+
+    solve(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, costs, stats = solve(dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = CapturedCall(solve, dev)(dev)
+    torch.cuda.synchronize()
+    for a, b in zip(list(out) + [costs] + list(stats),
+                    list(got[0]) + [got[1]] + list(got[2])):
+        assert torch.equal(a, b)
+    _, ref, ref_stats = solve(data)
+    np.testing.assert_allclose(costs.cpu().numpy(), ref.numpy(), rtol=1e-4)
+    assert torch.equal(stats.retries.cpu(), ref_stats.retries)
+
+
+def test_multistream_side_streams_serial_and_single_agree(cuda_device):
+    """Two tiny streams: the side-stream replays, the serial replays and
+    each stream's own eager steps (the same draws) agree bit for bit."""
+    from kbslam_torch.parallel.multistream import (batched_init_state,
+                                                   make_multistream_step)
+    from kbslam_torch.pipeline import track_step
+
+    S, T = 2, 4
+    cfg = config.tiny_config(height=120, width=160)
+    seqs = [synthetic.render_sequence(num_frames=T, height=120, width=160,
+                                      fx=130.0, seed=s) for s in range(S)]
+    intr = Intrinsics.create(130.0, 130.0, 79.5, 59.5)
+    rgb = torch.from_numpy(np.stack([np.stack([s.rgb[t] for s in seqs])
+                                     for t in range(T)])).to(cuda_device)
+    dep = torch.from_numpy(np.stack([np.stack([s.depth[t] for s in seqs])
+                                     for t in range(T)]).astype(np.int32)
+                           ).to(cuda_device)
+    step = make_multistream_step(cfg, intr, S)
+    runs = []
+    for serial in (False, True):
+        state, outs = batched_init_state(cfg, S, cuda_device), []
+        for t in range(T):
+            state, out = step(state, rgb[t], dep[t], serial=serial)
+            outs.append(out)
+        runs.append(outs)
+    for a, b in zip(*runs):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for i in range(S):
+        st = init_state(cfg, cuda_device)
+        for t in range(T):
+            st, o = track_step(st, rgb[t, i], dep[t, i], None, intr, cfg,
+                               hash_sampler(0, st.frame_count * S + i))
+            assert all(torch.equal(x, y[i]) for x, y in zip(o, runs[0][t]))

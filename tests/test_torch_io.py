@@ -77,7 +77,9 @@ def test_cli_chunked_checkpoint_and_resume(tmp_path, capsys):
     # --dense is ported: what it still refuses keeps these cases' names
     pytest.param(["--loop", "--save-surface", "s.npy"], "require --dense",
                  id="args2-dense mapping"),
-    (["--global-ba"], "unrecognized arguments"),
+    # --global-ba is ported: a flag the port still lacks keeps the name
+    pytest.param(["--viewer-every", "5"], "unrecognized arguments",
+                 id="args3-unrecognized arguments"),
     pytest.param(["--save-mesh", "m.ply"], "require --dense",
                  id="args4-dense mapping"),
     (["--viewer", "rerun"], "viewer"),
@@ -109,3 +111,20 @@ def test_cli_loop_reloc_cull(extra, capsys):
     assert "ate_rmse_m" in s
     only_reloc = _main(capsys, "--reloc", "2", *extra)
     assert "relocalizations" in only_reloc and "loop_closures" not in only_reloc
+
+
+@pytest.mark.parametrize("extra", [[], ["--chunk", "8"]])
+def test_cli_global_ba(extra, capsys):
+    """--global-ba per frame and chunked (kbslam/cli.py:307-310,
+    487-492): the cost line, a cost that does not rise, and the refined
+    trajectory's ATE with --eval though no local BA ran (:357, :540)."""
+    cli.main(["--frames", "16", "--width", "160", "--height", "120",
+              "--device", "cpu", "--ba", "off", "--global-ba", "--eval",
+              *extra])
+    out, err = capsys.readouterr()
+    s = json.loads(out.strip().splitlines()[-1])
+    line = [ln for ln in err.splitlines() if ln.startswith("global BA cost:")]
+    assert len(line) == 1, err
+    first, last = (float(c) for c in line[0].split(":")[1].split("->"))
+    assert last <= first
+    assert s["ba_runs"] == 0 and "ate_rmse_refined_m" in s

@@ -204,7 +204,8 @@ def test_port_imports_no_jax():
             "kbslam_torch.loop.pose_graph, kbslam_torch.loop.closure, "
             "kbslam_torch.loop.detect, kbslam_torch.loop.runner, "
             "kbslam_torch.loop.reloc, kbslam_torch.mapping.cull, "
-            "kbslam_torch.mapping.submap, kbslam_torch.mapping.icp; "
+            "kbslam_torch.mapping.submap, kbslam_torch.mapping.icp, "
+            "kbslam_torch.ba.global_ba, kbslam_torch.parallel.multistream; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'kbslam' "
             "or m.startswith(('jax.', 'kbslam.'))]; "
             "ref = os.path.join(os.getcwd(), 'kbslam') + os.sep; "
