@@ -1,10 +1,15 @@
 """Command-line entry point of the port: ``python -m kbslam_torch.cli``.
 
-The subset of ``python -m kbslam.cli`` that the port covers, with the
-same flags, validation errors and summary JSON keys:
+The port's counterpart of ``python -m kbslam.cli``, with the same flags,
+validation errors and summary JSON keys (and ``--device``, ``--seed``):
 
-- sources: ``synthetic`` (rendered RGB-D with ground truth, the default)
-  and ``tum:<dir>`` (a TUM RGB-D sequence directory);
+- sources: ``synthetic`` (rendered RGB-D with ground truth, the default),
+  ``tum:<dir>`` (a TUM RGB-D sequence directory) and ``zmq[:<endpoint>]``
+  (a live camera manager over ZMQ, ``io/zmq_camera.py``; default endpoint
+  ``tcp://localhost:5555``): the intrinsics handshake gives K, and its
+  distortion when ``--dist`` is unset; the run ends at the publisher's
+  end-of-stream marker, after ``--frames`` frames, or gracefully when the
+  publisher stalls;
 - per-frame tracking with local BA after each keyframe (``--ba on``, the
   default), asynchronous (``async``) or off;
 - ``--chunk N``: the chunked streaming executor (``streaming.py``, one
@@ -21,12 +26,17 @@ same flags, validation errors and summary JSON keys:
 - ``--global-ba``: one guarded global bundle adjustment over the whole
   keyframe ring at the end of the run (``ba/global_ba.py``), per frame
   and with ``--chunk``;
+- ``--viewer rerun`` (``viz/rerun_viewer.py``; without the ``rerun`` SDK
+  a recorder that logs nothing) and ``--viewer-every N``: the
+  trajectory, keyframes, landmarks and the frame's images every N-th
+  frame (every frame by default per frame, once per chunk with
+  ``--chunk``); with ``--dense`` also the surface cloud and a stride-4
+  render of the model on keyframe frames (at most once per N frames
+  with ``--chunk``), and the mesh with ``--save-mesh``. The viewer only
+  reads: the results equal those of ``--viewer none``;
 - ``--mask``, ``--dist``, ``--depth-edge-rel``, ``--save-trajectory``,
   ``--save-checkpoint`` (with the volume or the atlas), ``--resume``
   (restores it) and ``--eval``.
-
-``--viewer`` belongs to a later slice of the port (ROADMAP.md) and is
-refused; so is any other flag.
 """
 from __future__ import annotations
 
@@ -38,11 +48,11 @@ import time
 
 import numpy as np
 
-_LATER = {"viewer": "the Rerun viewer"}
 
-
-def _frames(args, ap):
-    """(K, config, iterator of (rgb, depth, mask, T_wc or None))."""
+def _frames(args, ap, dist):
+    """(K, config, iterator of (rgb, depth, mask, T_wc or None), lens
+    distortion): ``dist`` (from --dist), or for the zmq source the
+    handshake's when ``dist`` is None and the handshake's is not zero."""
     from kbslam_torch.config import DEFAULT_CONFIG
 
     if args.source.startswith("tum:"):
@@ -51,17 +61,46 @@ def _frames(args, ap):
         ds = TUMDataset(args.source[4:])
         cfg = DEFAULT_CONFIG.replace(map=dataclasses.replace(
             DEFAULT_CONFIG.map, depth_scale=ds.depth_scale))
-        return ds.K, cfg, iter(ds)
+        return ds.K, cfg, iter(ds), dist
+    if args.source.startswith("zmq"):
+        from kbslam_torch.io.zmq_camera import DEFAULT_ENDPOINT, ZMQCamera
+
+        ep = args.source[4:] if ":" in args.source else DEFAULT_ENDPOINT
+        cam = ZMQCamera(ep or DEFAULT_ENDPOINT)
+        K, zmq_dist = cam.get_intrinsics()
+        if dist is None and zmq_dist is not None and np.any(zmq_dist):
+            dist = zmq_dist
+        return K, DEFAULT_CONFIG, _camera_frames(cam), dist
     if args.source != "synthetic":
         ap.error(f"unknown --source {args.source!r} "
-                 "(expected synthetic | tum:<dir>)")
+                 "(expected synthetic | tum:<dir> | zmq[:<endpoint>])")
     from kbslam_torch.io.synthetic import render_sequence
 
     seq = render_sequence(num_frames=args.frames, height=args.height,
                           width=args.width, fx=525.0 * args.width / 640.0)
     frames = ((seq.rgb[i], seq.depth[i], seq.mask[i], seq.poses[i])
               for i in range(len(seq.rgb)))
-    return seq.K, DEFAULT_CONFIG, frames
+    return seq.K, DEFAULT_CONFIG, frames, dist
+
+
+def _camera_frames(cam):
+    """The camera's frames up to its end-of-stream marker. A publisher
+    stall ends the stream too, so that what was tracked is still
+    reported (the reference would block for good). The camera closes
+    when the iterator ends or is dropped."""
+    try:
+        while True:
+            try:
+                f = cam.grab_frames()
+            except TimeoutError as e:
+                print(f"kbslam_torch: camera timeout ({e}); ending stream",
+                      file=sys.stderr)
+                return
+            if f is None:
+                return
+            yield f[0], f[1], f[2], None
+    finally:
+        cam.close()
 
 
 def _save_trajectory(path, est):
@@ -96,10 +135,11 @@ def _loop_summary(summary, args, shell):
         summary["relocalizations"] = len(shell.reloc_events)
 
 
-def _dense_summary(summary, args, shell, rc):
+def _dense_summary(summary, args, shell, rc, viewer=None):
     """The reference's summary fields of the dense volume (observed
     voxels, surface points, ``render_consistency`` when ``rc``), and the
-    --save-surface / --save-mesh files."""
+    --save-surface / --save-mesh files; with a viewer, the mesh is logged
+    once (meshing is host-side: end of run only)."""
     pts, _ = shell.dense_surface()
     vol = shell.tsdf if shell.tsdf is not None else shell.atlas
     summary["tsdf_observed_voxels"] = int((vol.weight > 0).sum())
@@ -115,7 +155,10 @@ def _dense_summary(summary, args, shell, rc):
         from kbslam_torch.mapping.mesh import save_ply, vertex_normals
 
         mesh = shell.dense_mesh()
-        save_ply(args.save_mesh, mesh, vertex_normals(mesh))
+        normals = vertex_normals(mesh)
+        save_ply(args.save_mesh, mesh, normals)
+        if viewer is not None:
+            viewer.update_dense_mesh(mesh, normals)
         summary["mesh_vertices"] = len(mesh.vertices)
         summary["mesh_faces"] = len(mesh.faces)
 
@@ -155,6 +198,22 @@ def _icp_summary(summary, shell):
             1 for e in shell.icp_events if e["mode"] == mode and e["accepted"])
 
 
+def _make_viewer(args):
+    from kbslam_torch.viz.rerun_viewer import Viewer
+
+    return Viewer(spawn=True) if args.viewer == "rerun" else None
+
+
+def _view_dense(viewer, shell, depth_scale):
+    """The dense model in the viewer: its surface cloud and a stride-4
+    render from the newest fused keyframe, in the live depth feed's raw
+    units (so both panes share the JET ramp)."""
+    viewer.update_dense(shell.dense_surface()[0])
+    r = shell.render_view(stride=4)
+    if r is not None:
+        viewer.update_rendered(r.depth.cpu().numpy() / depth_scale)
+
+
 def _global_ba_cost_line(costs):
     print(f"global BA cost: {costs[0]:.2f} -> {costs[-1]:.2f}",
           file=sys.stderr)
@@ -163,7 +222,7 @@ def _global_ba_cost_line(costs):
 def main(argv=None):
     ap = argparse.ArgumentParser("kbslam_torch")
     ap.add_argument("--source", default="synthetic",
-                    help="synthetic | tum:<dir>")
+                    help="synthetic | tum:<dir> | zmq[:<endpoint>]")
     ap.add_argument("--frames", type=int, default=100)
     ap.add_argument("--ba", choices=["on", "async", "off"], default="on",
                     help="local bundle adjustment after each keyframe, "
@@ -185,7 +244,8 @@ def main(argv=None):
                     help="resume from a checkpoint written by "
                     "--save-checkpoint")
     ap.add_argument("--dist", default=None,
-                    help="comma-separated k1,k2,p1,p2,k3 lens distortion")
+                    help="comma-separated k1,k2,p1,p2,k3 lens distortion "
+                    "(the zmq handshake's when unset)")
     ap.add_argument("--chunk", type=int, default=0,
                     help="track N frames per device dispatch (one CUDA "
                     "graph replay on the card) with the chunked streaming "
@@ -202,7 +262,12 @@ def main(argv=None):
                     "(0 = lost for good, the reference's behaviour)")
     ap.add_argument("--cull", action="store_true",
                     help="keyframe culling (disabled in the reference)")
-    ap.add_argument("--viewer", choices=["rerun", "none"], default="none")
+    ap.add_argument("--viewer", choices=["rerun", "none"], default="none",
+                    help="log the trajectory, map and images to Rerun (a "
+                    "recorder that logs nothing without the rerun SDK)")
+    ap.add_argument("--viewer-every", type=int, default=0,
+                    help="update the viewer every Nth frame (0 = every "
+                    "frame per frame, once per chunk with --chunk)")
     ap.add_argument("--dense", action="store_true",
                     help="fuse keyframe depth into a dense TSDF volume (per "
                     "frame and with --chunk, where fusion runs chunk-late)")
@@ -228,9 +293,6 @@ def main(argv=None):
                     help="range-aware rim-gate term: spread threshold = "
                     "max(0.15, R*z^2); 0 = off")
     args = ap.parse_args(argv)
-    for flag, what in _LATER.items():
-        if getattr(args, flag) not in (False, 0, "none"):
-            ap.error(f"--{flag}: {what} is not ported yet (ROADMAP.md)")
     if args.chunk and args.ba == "on":
         ap.error("--chunk batches frames per dispatch, so synchronous "
                  "per-keyframe BA cannot interleave: use --ba async "
@@ -238,7 +300,8 @@ def main(argv=None):
     if args.gray and not args.chunk:
         ap.error("--gray requires --chunk")
 
-    K, cfg, frames = _frames(args, ap)
+    dist = [float(c) for c in args.dist.split(",")] if args.dist else None
+    K, cfg, frames, dist = _frames(args, ap, dist)
     if (args.height, args.width) != (cfg.image_height, cfg.image_width):
         cfg = cfg.replace(image_height=args.height, image_width=args.width)
     if args.cull:
@@ -268,7 +331,6 @@ def main(argv=None):
     if args.loop or args.reloc:
         cfg = cfg.replace(loop=dataclasses.replace(
             cfg.loop, enabled=bool(args.loop), reloc_after=args.reloc))
-    dist = [float(c) for c in args.dist.split(",")] if args.dist else None
     if args.chunk:
         _run_chunked(args, cfg, K, frames, dist)
         return
@@ -285,6 +347,7 @@ def main(argv=None):
         slam.state, _ = load_checkpoint(args.resume, cfg, slam.device)
         if args.dense:
             _resume_dense(args, cfg, slam)
+    viewer = _make_viewer(args)
     gts, n = [], 0
     for rgb, depth, mask, gt in frames:
         if n >= args.frames:
@@ -292,6 +355,15 @@ def main(argv=None):
         d = slam.process(rgb, depth, mask if args.mask else None)
         if gt is not None:
             gts.append(gt)
+        if viewer is not None and (not args.viewer_every
+                                   or n % args.viewer_every == 0):
+            traj = np.stack([T[:3, 3] for T in slam.frame_poses])
+            viewer.update(traj, slam.keyframe_positions(), slam.map_points(),
+                          rgb, depth, mask)
+        # the dense model changes only on fusion: keyframe frames, not
+        # the --viewer-every phase
+        if viewer is not None and args.dense and d["added_kf"]:
+            _view_dense(viewer, slam, cfg.map.depth_scale)
         if d["frame"] % 30 == 0:
             print(f"frame {d['frame']}: success={d['success']} "
                   f"kf={d['added_kf']} inliers={d['num_inliers']} "
@@ -317,7 +389,7 @@ def main(argv=None):
     rc = None
     if args.dense:
         rc = slam.map_consistency()
-        _dense_summary(summary, args, slam, rc)
+        _dense_summary(summary, args, slam, rc, viewer)
     if args.eval and len(gts) == n and n > 1:
         # with any solver: the local BA or the end-of-run global one
         _evaluate(summary, est, gts, slam.refined_trajectory()
@@ -359,16 +431,23 @@ def _run_chunked(args, cfg, K, frames, dist):
                        ba_mode="async" if args.ba == "async" else "off")
     if args.resume and args.dense:
         _resume_dense(args, cfg, cs)
+    viewer = _make_viewer(args)
+    view = _ChunkedView(viewer, cs, args, cfg.map.depth_scale)
     results, gts, n = [], [], 0
     t0 = time.perf_counter()
     for rgb, depth, mask, gt in frames:
         if n >= args.frames:
             break
-        results += cs.feed(rgb, depth, mask if args.mask else None)
+        view.hold(n, rgb, depth, mask)
+        got = cs.feed(rgb, depth, mask if args.mask else None)
+        view(got)
+        results += got
         if gt is not None:
             gts.append(gt)
         n += 1
-    results += cs.flush()
+    got = cs.flush()
+    view(got)
+    results += got
     wall = time.perf_counter() - t0
     if args.global_ba:
         new_map, costs = run_global_ba_on_map(cs.state.map, intr, cfg.ba)
@@ -396,7 +475,7 @@ def _run_chunked(args, cfg, K, frames, dist):
     )
     _loop_summary(summary, args, cs)
     if args.dense:
-        _dense_summary(summary, args, cs, rc)
+        _dense_summary(summary, args, cs, rc, viewer)
     if args.eval and len(gts) == n and n > 1:
         refined = None
         if cs.ba_stats or args.global_ba:
@@ -407,6 +486,56 @@ def _run_chunked(args, cfg, K, frames, dist):
     if args.save_trajectory:
         _save_trajectory(args.save_trajectory, est)
     print(json.dumps(summary))
+
+
+class _ChunkedView:
+    """The viewer on the chunked path, fed with the drained results: one
+    update per ``view_every`` frames (--viewer-every, else the chunk),
+    for the drained frames whose index it divides, and with --dense at
+    most one surface and render per ``view_every`` frames, on a drained
+    keyframe.
+
+    The map it shows is the live state, the state after the newest
+    dispatched replay, as the reference's CLI reads its live carry: each
+    read is a copy to the host on the stream (``map_keyframe_positions``,
+    ``map_point_positions``), made after that replay and complete before
+    the next is dispatched, so no view of the graph's static buffers
+    outlives a replay. Such a read waits for the chunk in flight. The
+    viewer never writes the state."""
+
+    def __init__(self, viewer, cs, args, depth_scale: float):
+        self.viewer, self.cs = viewer, cs
+        self.dense, self.depth_scale = args.dense, depth_scale
+        self.every = args.viewer_every or args.chunk
+        self.frames = {}        # frame index -> (rgb, depth, mask)
+        self.traj = []
+        self.last_dense = -10**9  # frame of the last dense update
+
+    def hold(self, i: int, rgb, depth, mask):
+        """Keep frame ``i``'s images until it drains."""
+        if self.viewer is not None:
+            self.frames[i] = (rgb, depth, mask)
+
+    def __call__(self, drained):
+        from kbslam_torch.slam import (map_keyframe_positions,
+                                       map_point_positions)
+
+        for r in drained:
+            self.traj.append(r["pose_t"])
+            if self.viewer is None:
+                continue
+            if r["frame"] % self.every == 0:
+                m = self.cs.state.map
+                self.viewer.update(np.stack(self.traj),
+                                   map_keyframe_positions(m),
+                                   map_point_positions(m),
+                                   *self.frames[r["frame"]])
+            if (self.dense and r["added_kf"]
+                    and r["frame"] - self.last_dense >= self.every):
+                _view_dense(self.viewer, self.cs, self.depth_scale)
+                self.last_dense = r["frame"]
+        for r in drained:
+            self.frames.pop(r["frame"], None)
 
 
 if __name__ == "__main__":

@@ -122,3 +122,10 @@ def depth_at(depth: torch.Tensor, uv: torch.Tensor,
         flat = depth.reshape(depth.shape[:-2] + (-1,))
         d = torch.gather(flat, -1, v * w + u)
     return d.to(torch.float32) * depth_scale
+
+
+def to_display_coords(p: torch.Tensor) -> torch.Tensor:
+    """The display-coordinate remap of the reference's viewer path,
+    (x, y, z) -> (x, -z, -y) on the last axis (Map.cpp:86,96;
+    VisualOdometry.cpp:181)."""
+    return torch.stack([p[..., 0], -p[..., 2], -p[..., 1]], dim=-1)

@@ -1,8 +1,11 @@
 """The port's own copies of the reference's numpy-only modules equal the
 originals: ``kbslam_torch/config.py``, ``io/synthetic.py``,
 ``eval/trajectory.py``, ``io/tum.py``, ``io/native_loader.py``,
-``mapping/mesh.py`` and
-``frontend/brief_pattern_learned.npy``.
+``mapping/mesh.py``, ``io/zmq_camera.py``, ``viz/rerun_viewer.py``,
+``utils/logging.py``, ``utils/profiling.py``'s ``StageTimer``,
+``frontend/brief_pattern_learned.npy`` and, byte for byte, the camera
+wire schema ``io/proto/`` (its descriptor registers the proto package
+``kbslam.aswire`` that both packages and a camera manager share).
 
 This is the one place both are imported. The copies differ from the
 originals only in their module docstring, which names the file copied,
@@ -29,7 +32,10 @@ COPIES = [("kbslam/config.py", "kbslam_torch/config.py"),
           ("kbslam/eval/trajectory.py", "kbslam_torch/eval/trajectory.py"),
           ("kbslam/io/tum.py", "kbslam_torch/io/tum.py"),
           ("kbslam/io/native_loader.py", "kbslam_torch/io/native_loader.py"),
-          ("kbslam/mapping/mesh.py", "kbslam_torch/mapping/mesh.py")]
+          ("kbslam/mapping/mesh.py", "kbslam_torch/mapping/mesh.py"),
+          ("kbslam/io/zmq_camera.py", "kbslam_torch/io/zmq_camera.py"),
+          ("kbslam/viz/rerun_viewer.py", "kbslam_torch/viz/rerun_viewer.py"),
+          ("kbslam/utils/logging.py", "kbslam_torch/utils/logging.py")]
 
 
 def _body(path: Path) -> str:
@@ -51,6 +57,24 @@ def test_pattern_file_bytes_equal():
     a = (REPO / "kbslam/frontend/brief_pattern_learned.npy").read_bytes()
     b = (REPO / "kbslam_torch/frontend/brief_pattern_learned.npy").read_bytes()
     assert a == b
+
+
+@pytest.mark.parametrize("name", ["__init__.py", "as_camera.proto",
+                                  "as_camera_pb2.py"])
+def test_wire_schema_bytes_equal(name):
+    a = (REPO / "kbslam/io/proto" / name).read_bytes()
+    assert (REPO / "kbslam_torch/io/proto" / name).read_bytes() == a
+
+
+def test_stage_timer_source_equal():
+    """``device_trace`` is the port's own (torch.profiler); the timer is a
+    copy."""
+    import inspect
+
+    from kbslam.utils import profiling as j
+    from kbslam_torch.utils import profiling as t
+
+    assert inspect.getsource(t.StageTimer) == inspect.getsource(j.StageTimer)
 
 
 def test_config_defaults_equal():

@@ -77,17 +77,17 @@ def test_cli_chunked_checkpoint_and_resume(tmp_path, capsys):
     # --dense is ported: what it still refuses keeps these cases' names
     pytest.param(["--loop", "--save-surface", "s.npy"], "require --dense",
                  id="args2-dense mapping"),
-    # --global-ba is ported: a flag the port still lacks keeps the name
-    pytest.param(["--viewer-every", "5"], "unrecognized arguments",
-                 id="args3-unrecognized arguments"),
     pytest.param(["--save-mesh", "m.ply"], "require --dense",
                  id="args4-dense mapping"),
-    (["--viewer", "rerun"], "viewer"),
-    (["--source", "zmq"], "unknown --source"),
-    (["--dense-submaps", "2"], "--dense-submaps requires --dense"),
-    (["--dense-icp", "rescue"], "--dense-icp requires --dense"),
-    (["--dense", "--dense-icp", "rescue", "--chunk", "4", "--ba", "off"],
-     "per-frame path only"),
+    # zmq is a source now: an unknown one is refused, naming the three
+    pytest.param(["--source", "bogus"], "unknown --source",
+                 id="args6-unknown --source"),
+    pytest.param(["--dense-submaps", "2"], "--dense-submaps requires --dense",
+                 id="args7---dense-submaps requires --dense"),
+    pytest.param(["--dense-icp", "rescue"], "--dense-icp requires --dense",
+                 id="args8---dense-icp requires --dense"),
+    pytest.param(["--dense", "--dense-icp", "rescue", "--chunk", "4", "--ba",
+                  "off"], "per-frame path only", id="args9-per-frame path only"),
 ])
 def test_cli_refuses_what_the_reference_refuses_or_is_not_ported(
         args, message, capsys):
@@ -96,8 +96,8 @@ def test_cli_refuses_what_the_reference_refuses_or_is_not_ported(
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert message in err
-    if message == "viewer":
-        assert "ROADMAP.md" in err
+    if message == "unknown --source":
+        assert "synthetic | tum:<dir> | zmq[:<endpoint>]" in err
 
 
 @pytest.mark.parametrize("extra", [[], ["--chunk", "4", "--ba", "async"]])

@@ -205,7 +205,10 @@ def test_port_imports_no_jax():
             "kbslam_torch.loop.detect, kbslam_torch.loop.runner, "
             "kbslam_torch.loop.reloc, kbslam_torch.mapping.cull, "
             "kbslam_torch.mapping.submap, kbslam_torch.mapping.icp, "
-            "kbslam_torch.ba.global_ba, kbslam_torch.parallel.multistream; "
+            "kbslam_torch.ba.global_ba, kbslam_torch.parallel.multistream, "
+            "kbslam_torch.io.zmq_camera, kbslam_torch.io.proto.as_camera_pb2, "
+            "kbslam_torch.viz.rerun_viewer, kbslam_torch.utils.profiling, "
+            "kbslam_torch.utils.logging; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'kbslam' "
             "or m.startswith(('jax.', 'kbslam.'))]; "
             "ref = os.path.join(os.getcwd(), 'kbslam') + os.sep; "

@@ -29,13 +29,15 @@ REPO = Path(__file__).resolve().parent.parent
     ["--loop", "--reloc", "2", "--cull", "--chunk", "4", "--ba", "async"],
     ["--dense", "--chunk", "4", "--ba", "off"],
     ["--dense", "--dense-submaps", "2", "--dense-icp", "rescue"],
-    ["--global-ba", "--chunk", "4", "--ba", "off"]])
+    ["--global-ba", "--chunk", "4", "--ba", "off"],
+    ["--viewer", "rerun", "--dense", "--chunk", "4", "--ba", "off"]])
 def test_package_alone_runs_its_cli(tmp_path, extra):
     """Per frame, and through the chunked executor (``--chunk 4``), which
     also imports streaming, io.checkpoint and io.tum's neighbours; with
     loop closure, relocalization and culling on; with dense mapping;
-    with the submap atlas and dense ICP; and with the end-of-run global
-    BA."""
+    with the submap atlas and dense ICP; with the end-of-run global BA;
+    and with the viewer (a recorder without the rerun SDK) on the
+    chunked dense path."""
     shutil.copytree(REPO / "kbslam_torch", tmp_path / "kbslam_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -49,7 +51,9 @@ def test_package_alone_runs_its_cli(tmp_path, extra):
     mods = subprocess.run(
         [sys.executable, "-c", "import sys, kbslam_torch.streaming, "
          "kbslam_torch.io.checkpoint, kbslam_torch.io.tum, kbslam_torch.cli, "
-         "kbslam_torch.parallel.multistream;"
+         "kbslam_torch.parallel.multistream, kbslam_torch.io.zmq_camera, "
+         "kbslam_torch.viz.rerun_viewer, kbslam_torch.utils.profiling, "
+         "kbslam_torch.utils.logging;"
          " print(sorted(m for m in sys.modules if m.startswith(('jax', "
          "'kbslam.')) or m == 'kbslam'))"],
         capture_output=True, text=True, cwd=tmp_path, env=env, timeout=120)
