@@ -4,6 +4,10 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
+and ``python3 chip_smoke.py --only distributed`` runs phase 22 after
+only the phases it is held to (1, 2, phase 5's sequence, 7, 18 and 19),
+for a machine with several cards.
+
 Phases (each prints one line or more; any failure raises and exits
 non-zero):
   1. device   — require CUDA; print the card's name and power limit;
@@ -206,14 +210,30 @@ non-zero):
                 and the rotation-dominant sweep of tests/test_ba_in_loop.py
                 (120 frames), with the port's own draws: every gate
                 enforced but the sweep's relative one, which the CPU test
-                holds on JAX's minimal sets and which is printed.
+                holds on JAX's minimal sets and which is printed;
+ 22. distributed — the multi-device paths over one NCCL process per card
+                (``kbslam_torch.parallel.dist.spawn``; a world of one
+                on a one-card machine): config 5 camera-sharded and landmark-
+                sharded, eagerly, bit-equal to phase 18's eager solve at
+                world 1 and held to phase 18's gates against it at any
+                world (host ms, device ms, collectives and bytes per solve
+                and per PCG trip); ``SLAM.run_global_ba(group=)`` on phase
+                7's map against phase 18's; config 4's 8 streams sharded
+                over the ranks, immediate and deferred, every stream
+                bit-equal to phase 19's (SHA-256 of its outputs and
+                state), 0 collectives, frames/s and describe launches;
+                phase 7's keyframes fused into a 512^3 volume in voxel
+                slabs, gathered bit-equal to the unsharded ``integrate``
+                on the card, 0 collectives, device ms and peak memory per
+                card. Each rank loads no JAX.
 The dense stages, the atlas, the aligners, global BA and the
 multistream shell are plain torch, not kernels of the kernels line. Then
 one JSON line about the kernels, the nvidia-smi line, and the result
 line. The describe kernel's launch count sums phases 5, 7 and 10, the
 relocalization attempts of phase 14, phase 16's dense SLAM run, phase
-17's atlas SLAM run, phase 19's runs and phase 21's runs (its chunked
-CLI runs add their replays x 8). In phases 10 and 19 the
+17's atlas SLAM run, phase 19's runs, phase 21's runs (its chunked
+CLI runs add their replays x 8) and phase 22's ranks. In phases 10, 19
+and 22 the
 wrapper's counter counts the eager calls (the warm-up before the capture
 and the tail; a call inside the capture launches nothing and is not
 counted), and the graph's replays, which no Python runs, add the
@@ -2084,7 +2104,10 @@ def global_ba_phase(dev, smi, slam7, seq, ate7):
     equal ``accepted`` and ``retries``, PCG trips within +-1 per round
     and the first round's cost within 1e-3; every round's gap is printed
     beside the CPU's own, and both runs must descend monotonically to
-    below 1e-2 of the start."""
+    below 1e-2 of the start. Returns what phase 22 holds its sharded
+    runs to: the eager solve's results and phase 7's map before and after
+    ``run_global_ba``, on the host."""
+    from kbslam_torch import convert
     from kbslam_torch.ba import global_ba as gba
     from kbslam_torch.device import CapturedCall
     from kbslam_torch.eval import trajectory
@@ -2193,6 +2216,7 @@ def global_ba_phase(dev, smi, slam7, seq, ate7):
     slots, _, real = window_slots(m, n_cams)
     g = int(slots[int(torch.argmax(real.to(torch.int32)))])
     gauge = (m.kf_q[g].clone(), m.kf_t[g].clone())
+    map_before = convert.map_to_numpy(m)
     t0 = time.perf_counter()
     run_costs = slam7.run_global_ba()
     run_ms = (time.perf_counter() - t0) * 1e3
@@ -2211,6 +2235,17 @@ def global_ba_phase(dev, smi, slam7, seq, ate7):
           f"with its host reads; refined ATE {ate_ref * 1e3:.2f} mm (phase "
           f"7: online {ate7[0] * 1e3:.2f} mm, refined by local BA "
           f"{ate7[1] * 1e3:.2f} mm); {smi}", flush=True)
+    return dict(eager=_solve_rows(out, costs, stats), map_before=map_before,
+                map_after=convert.map_to_numpy(m), run_costs=run_costs,
+                gauge_slot=g)
+
+
+def _solve_rows(out, costs, stats) -> dict:
+    """A global solve's cameras, landmarks, costs and stats on the host."""
+    return dict(cam_q=out.cam_q.cpu(), cam_t=out.cam_t.cpu(),
+                mp_pos=out.mp_pos.cpu(), costs=costs.cpu(),
+                accepted=stats.accepted.cpu(), retries=stats.retries.cpu(),
+                pcg_iters=stats.pcg_iters.cpu(), lam=stats.lam.cpu())
 
 
 def _render_streams(n, frames):
@@ -2242,10 +2277,29 @@ def _kernel_sum(fn):
     return sum(e.device_time for e in kernels) / 1e3, len(kernels)
 
 
-def multistream_phase(dev, smi, pace) -> int:
+def _stream_digests(outs, state, first=0) -> list:
+    """SHA-256 of every stream's rows of a run: its outputs of every frame
+    (a list of stream-batched ``TrackOutput``) and its final state; the
+    streams numbered globally from ``first``."""
+    import hashlib
+
+    def leaves(st):
+        return list(st.map) + list(st[1:])
+
+    digests = []
+    for i in range(state.pose_q.shape[0]):
+        h = hashlib.sha256()
+        for t in [x for o in outs for x in o] + leaves(state):
+            h.update(t[i].contiguous().cpu().numpy().tobytes())
+        digests.append((first + i, h.hexdigest()))
+    return digests
+
+
+def multistream_phase(dev, smi, pace):
     """(19) Config 4: 8 streams of 640x480 at SLAMConfig(), immediate and
     deferred (apply_every 4), side streams and serial. Returns the
-    describe launches of the runs."""
+    describe launches of the runs, and for phase 22 the frames and each
+    stream's digest of the immediate and the deferred run."""
     from kbslam_torch import config
     from kbslam_torch.geom.camera import Intrinsics
     from kbslam_torch.ops import describe as describe_ops
@@ -2268,6 +2322,7 @@ def multistream_phase(dev, smi, pace) -> int:
     dep = torch.from_numpy(np.stack([np.stack([s.depth[t] for s in seqs])
                                      for t in range(T)]).astype(np.int32)
                            ).pin_memory()
+    seq_K = seqs[0].K
     del seqs
     describe_ops.reset_launches()
 
@@ -2404,7 +2459,11 @@ def multistream_phase(dev, smi, pace) -> int:
           f"(warm-ups, single-stream runs) + {step.streams.replays} step "
           f"replays x {S} x {n_step} + {scan.streams.replays} block replays "
           f"x {S} x {n_block}; {smi}", flush=True)
-    return launches
+    ninl_rows = torch.from_numpy(ninl_d).movedim(1, 0)
+    return launches, dict(
+        rgb=rgb, dep=dep, K=seq_K,
+        immediate=_stream_digests(outs, final),
+        deferred=_stream_digests([(ninl_rows,)], st_d))
 
 
 class _CountedCull:
@@ -2991,7 +3050,436 @@ def io_phase(dev, seq, smi, pace, slice_poses) -> int:
     return launches
 
 
-def main() -> int:
+# 22. the multi-device paths over a process group of the machine's cards
+DIST_DIMS = (512, 512, 512)      # the volume kbslam/mapping/dense.py:186-187 names
+DIST_VOXEL_M = 0.016             # 8.19 m a side: the default box's x-y span
+DIST_ORIGIN = (-4.096, -4.096, 0.2)
+DIST_TIMEOUT_S = 400.0
+
+
+def assert_no_jax():
+    """Raise when this process loaded JAX or any module of kbslam/."""
+    ref_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "kbslam") + os.sep
+    loaded = [m for m, mod in list(sys.modules.items())
+              if m == "jax" or m.startswith("jax.") or m == "kbslam"
+              or m.startswith("kbslam.")
+              or (getattr(mod, "__file__", None) or "").startswith(ref_dir)]
+    if loaded:
+        raise AssertionError(f"the port loaded JAX or kbslam/: {loaded}")
+
+
+def _nbytes(counts) -> int:
+    return sum(b for _, b in counts.values())
+
+
+def _kernel_split(fn):
+    """One call of ``fn`` under torch.profiler: (summed ms of the compute
+    kernels, summed ms of the NCCL kernels, kernels). An NCCL kernel runs
+    from its launch until every rank has joined, so its time holds the
+    wait for the other ranks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = sum(e.device_time for e in kernels if "nccl" in e.name.lower())
+    total = sum(e.device_time for e in kernels)
+    return (total - nccl) / 1e3, nccl / 1e3, len(kernels)
+
+
+def _dist_global_ba(group, refs) -> dict:
+    """(22a, one rank) Config 5 camera-sharded and landmark-sharded,
+    eagerly: per solve host ms, device ms (CUDA events, and summed kernel
+    time by torch.profiler, the NCCL kernels apart), collectives and
+    bytes, and the bytes of one
+    PCG trip (a solve with the cap one lower sends one trip less per
+    retry); then ``SLAM.run_global_ba(group=)`` on phase 7's map."""
+    from kbslam_torch import config, convert
+    from kbslam_torch.ba import global_ba as gba
+    from kbslam_torch.slam import SLAM
+
+    dev = group.device
+    data_cpu, intr, _ = global_ba_problem()
+    shard = gba.shard_global_data(
+        gba.GlobalBAData(*(x.to(dev) for x in data_cpu)), group)
+
+    def solve(ls, cap=GBA_PCG):
+        return gba.global_ba_solve(shard, intr, iters=GBA_ROUNDS,
+                                   pcg_iters=cap, pcg_tol=GBA_TOL,
+                                   max_retries=GBA_RETRIES,
+                                   return_stats=True, group=group,
+                                   landmark_sharded=ls)
+
+    res = {}
+    for name, ls in (("camera", False), ("landmark", True)):
+        solve(ls)               # warm-up: the communicator, the allocator
+        torch.cuda.synchronize()
+        group.reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out, costs, stats = solve(ls)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        end_ms = (time.perf_counter() - t0) * 1e3
+        counts = {op: list(c) for op, c in group.counts.items()}
+        kern_ms, nccl_ms, n_kern = _kernel_split(lambda: solve(ls))
+        group.reset_counts()
+        solve(ls, GBA_PCG - 1)
+        torch.cuda.synchronize()
+        trip = (_nbytes(counts) - _nbytes(group.counts)) / (GBA_ROUNDS
+                                                           * GBA_RETRIES)
+        res[name] = dict(rows=_solve_rows(gba.gather_global_data(out, group),
+                                          costs, stats),
+                         counts=counts, trip_bytes=trip, host_ms=host_ms,
+                         end_ms=end_ms, event_ms=start.elapsed_time(end),
+                         kernel_ms=kern_ms, nccl_ms=nccl_ms, kernels=n_kern)
+
+    slam = SLAM(config.SLAMConfig(), refs["K"], device=dev)
+    slam.state = slam.state._replace(
+        map=convert.map_to_torch(refs["map_before"], dev))
+    t0 = time.perf_counter()
+    run_costs = slam.run_global_ba(group=group)
+    res["run"] = dict(costs=run_costs, ms=(time.perf_counter() - t0) * 1e3,
+                      map=convert.map_to_numpy(slam.state.map))
+    return res
+
+
+def _dist_streams(group, frames_dir, K, refs) -> dict:
+    """(22b, one rank) Config 4's 8 streams, this rank's block of them:
+    the immediate step over the 33 frames and the deferred scan from frame
+    0's warm start, each stream's digest against phase 19's, with the
+    pace and the describe launches of this rank."""
+    from kbslam_torch import config
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.ops import describe as describe_ops
+    from kbslam_torch.parallel.multistream import (batched_init_state,
+                                                   make_multistream_scan,
+                                                   make_multistream_step,
+                                                   shard_streams)
+    from kbslam_torch.streaming import clone_state
+
+    dev, S, T, K_apply = group.device, MS_STREAMS, MS_FRAMES, MS_K
+
+    def frames(name):          # [S, T, ...] on disk -> this rank's [T, S/W, ...]
+        whole = torch.from_numpy(np.load(os.path.join(frames_dir, name),
+                                          mmap_mode="c"))
+        return shard_streams(whole, group).movedim(0, 1).contiguous() \
+            .pin_memory()
+
+    rgb, dep = frames("rgb.npy"), frames("dep.npy")
+    first, n = group.rank * (S // group.world), S // group.world
+    cfg, intr = config.SLAMConfig(), Intrinsics.from_matrix(K)
+    group.reset_counts()
+    describe_ops.reset_launches()
+    step = make_multistream_step(cfg, intr, S, group=group)
+    state = shard_streams(batched_init_state(cfg, S, dev), group)
+    outs, ends = [], []
+    for t in range(T):
+        state, out = step(state, rgb[t], dep[t])
+        outs.append(out)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        if t == 0:
+            warm = clone_state(state)
+    torch.cuda.synchronize()
+    ms_step = ends[0].elapsed_time(ends[-1]) / (T - 1)
+    immediate = _stream_digests(outs, state, first)
+
+    scan = make_multistream_scan(cfg, intr, S, apply_every=K_apply,
+                                 group=group)
+    scan(clone_state(warm), rgb[1:], dep[1:])          # the captures
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    st_d, ninl = scan(clone_state(warm), rgb[1:], dep[1:])
+    end.record()
+    torch.cuda.synchronize()
+    ms_frame_d = start.elapsed_time(end) / (T - 1)
+    deferred = _stream_digests([(ninl.movedim(1, 0),)], st_d, first)
+    n_step = _replay_profile(step.streams._graphs[0])[3]
+    n_block = _replay_profile(scan.streams._graphs[0])[3]
+    if (n_step, n_block) != (1, K_apply):
+        raise AssertionError(f"describe kernels per graph: step {n_step}, "
+                             f"block {n_block} (expected 1, {K_apply})")
+    launches = (describe_ops.launches + step.streams.replays * n * n_step
+                + scan.streams.replays * n * n_block)
+    bad = [(i, what) for what, mine, ref in
+           (("immediate", immediate, refs["immediate"]),
+            ("deferred", deferred, refs["deferred"]))
+           for i, h in mine if dict(ref)[i] != h]
+    return dict(streams=list(range(first, first + n)), bad=bad,
+                collectives=group.collectives(), ms_step=ms_step,
+                ms_frame_deferred=ms_frame_d, launches=launches,
+                eager=describe_ops.launches,
+                replays=(step.streams.replays, scan.streams.replays))
+
+
+def _dist_fusion(group, kf) -> dict:
+    """(22c, one rank) The keyframes fused into this rank's slab of a
+    512^3 volume: device ms per keyframe, peak memory, collectives; then
+    the gathered volume against the unsharded ``integrate`` on this
+    card."""
+    import dataclasses
+
+    from kbslam_torch import config
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.mapping import dense
+
+    dev = group.device
+    base = config.SLAMConfig()
+    dcfg = dataclasses.replace(base.dense, dims=DIST_DIMS,
+                               voxel_size=DIST_VOXEL_M, origin=DIST_ORIGIN)
+    intr, scale = Intrinsics.from_matrix(kf["K"]), base.map.depth_scale
+    frames = [(torch.from_numpy(d).to(dev), torch.from_numpy(q).to(dev),
+               torch.from_numpy(t).to(dev))
+              for d, q, t in zip(kf["depth"], kf["q"], kf["t"])]
+    fuse = dense.make_sharded_integrate(dcfg, intr, group, scale)
+
+    def fused(slab):
+        for d, q, t in frames:
+            slab = fuse(slab, d, q, t)
+        return slab
+
+    fused(dense.shard_tsdf(dense.empty_tsdf(dcfg, dev), group))   # warm-up
+    slab = dense.shard_tsdf(dense.empty_tsdf(dcfg, dev), group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    group.reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    slab = fused(slab)
+    end.record()
+    torch.cuda.synchronize()
+    collectives = group.collectives()
+    ms = start.elapsed_time(end) / len(frames)
+    peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    slab_shape = tuple(slab.tsdf.shape)
+    whole = dense.gather_tsdf(slab, group)
+    del slab
+    ref = dense.empty_tsdf(dcfg, dev)
+    one = dense.make_integrate(dcfg, intr, scale)
+    for d, q, t in frames:
+        ref = one(ref, d, q, t)
+    equal = (torch.equal(whole.tsdf, ref.tsdf)
+             and torch.equal(whole.weight, ref.weight))
+    return dict(slab=slab_shape, collectives=collectives, ms=ms,
+                peak_gb=peak_gb, equal=equal,
+                observed=int((whole.weight > 0).sum()))
+
+
+def _distributed_rank(group, frames_dir, refs):
+    """(22) What every rank of the group runs; returns host data."""
+    from kbslam_torch.ops import _build
+
+    _build.build()      # the parent built it: this loads the cached library
+    out = dict(rank=group.rank, world=group.world,
+               card=torch.cuda.get_device_name(group.device))
+    out["global_ba"] = _dist_global_ba(group, refs["gba"])
+    out["streams"] = _dist_streams(group, frames_dir, refs["streams"]["K"],
+                                   refs["streams"])
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fusion"] = _dist_fusion(group, refs["fusion"])
+    assert_no_jax()
+    return out
+
+
+def _same_rows(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in b)
+
+
+def distributed_phase(dev, smi, slam7, seq, gba_refs, stream_refs) -> int:
+    """(22) The multi-device paths over one NCCL rank per card of this
+    machine (``parallel.dist.spawn``): config 5 camera- and landmark-
+    sharded against phase 18's eager solve, ``SLAM.run_global_ba(group=)``
+    against phase 18's, config 4's streams sharded against phase 19's
+    digests, and a 512^3 volume fused in slabs against the unsharded
+    ``integrate``. Returns the describe launches of the ranks."""
+    import tempfile
+
+    from kbslam_torch.parallel import dist
+
+    world = torch.cuda.device_count()
+    kf_frames = [d["frame"] for d in slam7.diagnostics if d["added_kf"]]
+    qt = [_pose_qt(slam7.frame_poses[f]) for f in kf_frames]
+    refs = dict(
+        gba=dict(K=seq.K, map_before=gba_refs["map_before"]),
+        streams=dict(K=stream_refs["K"], immediate=stream_refs["immediate"],
+                      deferred=stream_refs["deferred"]),
+        fusion=dict(K=seq.K, depth=[seq.depth[f].astype(np.int32)
+                                    for f in kf_frames],
+                    q=[q for q, _ in qt], t=[t for _, t in qt]))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as frames_dir:
+        for name, x in (("rgb.npy", stream_refs["rgb"]),
+                        ("dep.npy", stream_refs["dep"])):
+            np.save(os.path.join(frames_dir, name),
+                    x.movedim(1, 0).contiguous().numpy())
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs = dist.spawn(_distributed_rank, world, "cuda",
+                          (frames_dir, refs), timeout_s=DIST_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    cards = sorted({r["card"] for r in runs})
+
+    # (a) config 5 against phase 18's eager solve on one card
+    one = gba_refs["eager"]
+    c1 = one["costs"].numpy()
+    lines = []
+    for name in ("camera", "landmark"):
+        r = runs[0]["global_ba"][name]
+        per_rank = [x["global_ba"][name] for x in runs]
+        rows = r["rows"]
+        c = rows["costs"].numpy()
+        pcg, rpcg = rows["pcg_iters"].numpy(), one["pcg_iters"].numpy()
+        rel = np.abs(c - c1) / np.abs(c1)
+        if world == 1 and not _same_rows(rows, one):
+            raise AssertionError(f"{name}-sharded solve at world 1 != phase "
+                                 "18's eager solve")
+        if not (torch.equal(rows["accepted"], one["accepted"])
+                and torch.equal(rows["retries"], one["retries"])
+                and (np.abs(pcg - rpcg) <= 1).all() and rel[1] <= 1e-3
+                and np.isfinite(c).all() and (np.diff(c) <= 0).all()
+                and c[-1] < 1e-2 * c[0]):
+            raise AssertionError(
+                f"{name}-sharded solve against one card: costs {c} vs {c1}, "
+                f"accepted {rows['accepted'].tolist()} vs "
+                f"{one['accepted'].tolist()}, retries "
+                f"{rows['retries'].tolist()} vs {one['retries'].tolist()}, "
+                f"PCG {pcg} vs {rpcg}")
+        for other in runs[1:]:
+            if not torch.equal(other["global_ba"][name]["rows"]["mp_pos"],
+                               rows["mp_pos"]):
+                raise AssertionError(f"{name}-sharded: the ranks' landmarks "
+                                     "differ")
+        lines.append(
+            f"{name}-sharded: cost {[round(float(x), 3) for x in c]}, "
+            f"relative gap to one card per round "
+            f"{[float(f'{x:.2e}') for x in rel[1:]]}, PCG trips "
+            f"{pcg.tolist()} (one card {rpcg.tolist()}); per solve and rank "
+            f"host {[round(x['host_ms'], 1) for x in per_rank]} ms to "
+            f"enqueue, {[round(x['end_ms'], 1) for x in per_rank]} ms to its "
+            f"end, device {[round(x['event_ms'], 2) for x in per_rank]} ms by "
+            f"CUDA events around the eager solve, "
+            f"{[round(x['kernel_ms'], 2) for x in per_rank]} ms summed time "
+            f"of the compute kernels and "
+            f"{[round(x['nccl_ms'], 2) for x in per_rank]} ms of the NCCL "
+            f"kernels (waits for the other ranks included), "
+            f"{[x['kernels'] for x in per_rank]} kernels (torch.profiler); "
+            f"rank 0's collectives per solve "
+            f"(calls, bytes) {r['counts']}, {_nbytes(r['counts'])} bytes, "
+            f"{r['trip_bytes']:.0f} bytes per PCG trip")
+    run = runs[0]["global_ba"]["run"]
+    after, before = gba_refs["map_after"], gba_refs["map_before"]
+    g = gba_refs["gauge_slot"]
+    rc, rc1 = np.asarray(run["costs"]), np.asarray(gba_refs["run_costs"])
+    run_gap = np.abs(rc - rc1) / np.abs(rc1)
+    if world == 1 and not (
+            list(run["costs"]) == list(gba_refs["run_costs"])
+            and all(np.array_equal(getattr(run["map"], k), getattr(after, k))
+                    for k in ("kf_q", "kf_t", "mp_pos"))):
+        raise AssertionError("SLAM.run_global_ba(group=) at world 1 != "
+                             "phase 18's")
+    if not (np.isfinite(rc).all() and (np.diff(rc) <= 0).all()
+            and (run_gap <= 1e-3).all()
+            and np.array_equal(run["map"].kf_q[g], before.kf_q[g])
+            and np.array_equal(run["map"].kf_t[g], before.kf_t[g])):
+        raise AssertionError(f"SLAM.run_global_ba(group=): costs {rc} vs "
+                             f"phase 18's {rc1}, or the gauge moved")
+    print(f"[distributed] world {world} ({', '.join(cards)}; one NCCL rank "
+          f"per card through parallel.dist.spawn, {spawn_s:.1f} s for the "
+          f"ranks' whole run, frames written in {write_s:.1f} s); config 5 "
+          f"({GBA_CAMS} cameras, {GBA_PTS} landmarks, {GBA_ROUNDS} rounds, "
+          f"PCG cap {GBA_PCG}, tol {GBA_TOL}), "
+          f"{GBA_CAMS // world} cameras per rank, eagerly: "
+          + "; ".join(lines)
+          + ("; both bit-equal to phase 18's eager solve" if world == 1
+             else "; phase 18's gates hold against its one-card solve")
+          + f"; SLAM.run_global_ba(group=) on phase 7's map: cost "
+          f"{[round(x, 3) for x in run['costs']]}, "
+          + ("bit-equal to phase 18's" if world == 1 else
+             f"within {run_gap.max():.1e} of phase 18's per round")
+          + f", the gauge keyframe bit-unchanged, {run['ms']:.1f} ms; {smi}",
+          flush=True)
+
+    # (b) config 4 sharded against phase 19's digests
+    st = [r["streams"] for r in runs]
+    bad = [b for s in st for b in s["bad"]]
+    if bad or any(s["collectives"] for s in st):
+        raise AssertionError(f"sharded streams != phase 19 (stream, run): "
+                             f"{bad}; collectives {[s['collectives'] for s in st]}")
+    launches = sum(s["launches"] for s in st)
+    fps = sum(len(s["streams"]) * 1e3 / s["ms_step"] for s in st)
+    fps_d = sum(len(s["streams"]) * 1e3 / s["ms_frame_deferred"] for s in st)
+    print(f"[distributed] config 4: {MS_STREAMS} streams of 640x480, "
+          f"{MS_FRAMES} frames, {MS_STREAMS // world} per rank "
+          f"({[s['streams'] for s in st]}): every stream's outputs and state "
+          f"bit-equal to phase 19's (SHA-256 of every row), immediate and "
+          f"deferred; 0 collectives while tracking; immediate "
+          f"{fps:.1f} frames/s together (ms per step per rank "
+          f"{[round(s['ms_step'], 2) for s in st]}, CUDA events, steps "
+          f"2-{MS_FRAMES}), deferred {fps_d:.1f} frames/s (ms per frame "
+          f"{[round(s['ms_frame_deferred'], 2) for s in st]}); describe "
+          f"launches {launches} ({[s['eager'] for s in st]} eager, replays "
+          f"(step, block) {[s['replays'] for s in st]}); {smi}", flush=True)
+
+    # (c) the 512^3 volume in slabs
+    fu = [r["fusion"] for r in runs]
+    if not all(f["equal"] and f["collectives"] == 0 for f in fu):
+        raise AssertionError(f"slab fusion: equal {[f['equal'] for f in fu]}"
+                             f", collectives {[f['collectives'] for f in fu]}")
+    V = int(np.prod(DIST_DIMS))
+    print(f"[distributed] fusion: {len(kf_frames)} keyframes of phase 7's run "
+          f"(frames {kf_frames}) into a {DIST_DIMS} volume of "
+          f"{DIST_VOXEL_M} m voxels ({V * 8 / 1e9:.3f} GB of tsdf and weight),"
+          f" slabs of {fu[0]['slab']} per rank: gathered, bit-equal to the "
+          f"unsharded integrate on the card ({fu[0]['observed']} voxels "
+          f"observed); 0 collectives while fusing; device "
+          f"{[round(f['ms'], 3) for f in fu]} ms per keyframe per rank (CUDA "
+          f"events over the {len(kf_frames)} eager calls), peak "
+          f"{[round(f['peak_gb'], 3) for f in fu]} GB per card above the "
+          f"slab; {smi}", flush=True)
+    return launches
+
+
+def distributed_alone(dev, smi, name) -> int:
+    """``--only distributed``: phase 22 after the phases it is held to
+    (phase 5's sequence, 7, 18 and 19; phase 19 without phase 10's pace),
+    for a run on several cards."""
+    from kbslam_torch import config
+    from kbslam_torch.io import synthetic
+    from kbslam_torch.slam import SLAM
+
+    seq = synthetic.render_sequence(num_frames=FRAMES, height=480, width=640)
+    slam = track(SLAM(config.SLAMConfig(), seq.K, device=dev), seq)
+    ate = check_ba_run(slam, seq)
+    gba_refs = global_ba_phase(dev, smi, slam, seq, ate)
+    _, stream_refs = multistream_phase(dev, smi, {"ms_frame": float("nan")})
+    distributed_phase(dev, smi, slam, seq, gba_refs, stream_refs)
+    assert_no_jax()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only", "distributed"]):
+        print("usage: python3 chip_smoke.py [--only distributed]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3020,6 +3508,8 @@ def main() -> int:
             if "registers" in ln or "Compiling entry" in ln]
     print(f"[build] {built.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(cached={built.cached}) {' | '.join(regs)}", flush=True)
+    if argv:
+        return distributed_alone(dev, smi, name)
 
     # 3. the patch kernel against its plain twin and the one-call yardstick
     cases = [(480, 640, 3072), (480, 640, 3071), (64, 96, 130)]
@@ -3212,10 +3702,11 @@ def main() -> int:
     launches["describe_keypoints"] += submap_phase(dev, seq, smi, pace)
 
     # 18. global BA at config 5, and on phase 7's map
-    global_ba_phase(dev, smi, slam, seq, (ate, ate_ref))
+    gba_refs = global_ba_phase(dev, smi, slam, seq, (ate, ate_ref))
 
     # 19. multistream tracking at config 4
-    launches["describe_keypoints"] += multistream_phase(dev, smi, pace)
+    ms_launches, stream_refs = multistream_phase(dev, smi, pace)
+    launches["describe_keypoints"] += ms_launches
 
     # 20. tests/test_longrun.py on the card
     longrun_phase(dev, smi)
@@ -3225,14 +3716,11 @@ def main() -> int:
     launches["describe_keypoints"] += io_phase(dev, seq, smi, pace,
                                                slice_poses)
 
-    ref_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "kbslam") + os.sep
-    loaded = [m for m, mod in list(sys.modules.items())
-              if m == "jax" or m.startswith("jax.") or m == "kbslam"
-              or m.startswith("kbslam.")
-              or (getattr(mod, "__file__", None) or "").startswith(ref_dir)]
-    if loaded:
-        raise AssertionError(f"the port loaded JAX or kbslam/: {loaded}")
+    # 22. the multi-device paths, one NCCL rank per card
+    launches["describe_keypoints"] += distributed_phase(
+        dev, smi, slam, seq, gba_refs, stream_refs)
+
+    assert_no_jax()
 
     print(json.dumps({"kernels": [
         {"name": "describe_keypoints", "route": "cuda",

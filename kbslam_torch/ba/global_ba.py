@@ -1,14 +1,24 @@
-"""Global bundle adjustment over a whole map, on one device
-(BASELINE.json config 5: 200 keyframes / 50k landmarks).
+"""Global bundle adjustment over a whole map (BASELINE.json config 5:
+200 keyframes / 50k landmarks), on one device or over a process group.
 
-Port of kbslam/ba/global_ba.py without its device mesh: the reference
-shards cameras over a mesh and reduces landmark sums with ``psum``; on
-one device every ``psum`` is the identity, so what is left is the body
-of its kernels. The reduced camera system S = H_cc - U H_pp^-1 U^T is
-never formed: preconditioned conjugate gradients (PCG) apply it
-matrix-free, with the block-Jacobi (SCHUR_JACOBI) preconditioner on S's
-6x6 diagonal blocks. Camera 0 of the problem, or whichever has
-``cam_free`` False, is held fixed; ``anchor_mp`` pins the scale.
+Port of kbslam/ba/global_ba.py. The reduced camera system
+S = H_cc - U H_pp^-1 U^T is never formed: preconditioned conjugate
+gradients (PCG) apply it matrix-free, with the block-Jacobi
+(SCHUR_JACOBI) preconditioner on S's 6x6 diagonal blocks. Camera 0 of
+the problem, or whichever has ``cam_free`` False, is held fixed;
+``anchor_mp`` pins the scale.
+
+Sharding (``group``, a ``parallel.dist.ShardGroup``; ``None`` is one
+device): as in the reference's ``shard_map``, each rank holds its block
+of the cameras and their observations (``shard_global_data``) and a copy
+of the landmarks. The landmark sums of the camera blocks are all-reduced
+(``psum``), and so are the costs and PCG's two dot products. With
+``landmark_sharded`` the landmark normal equations are reduce-scattered
+instead (``psum_scatter``): each rank inverts its block of the [P, 3, 3]
+landmark blocks, and the landmark-side vectors are all-gathered where
+the cameras need them (``all_gather``). Every collective runs in every
+trip whatever the data, and every mask derives from a summed value, so
+the ranks stay in step.
 
 - Sums by landmark id are segment sums over one plan per solve
   (``ops.incidence.SumById``, unrounded): the ids do not change within a
@@ -32,7 +42,7 @@ reference's ``default_matmul_precision("highest")``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,6 +53,7 @@ from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.geom.se3 import SE3, cross_matrix, quat_conj, quat_to_matrix
 from kbslam_torch.mapping.state import scatter_rows
 from kbslam_torch.ops.incidence import SumById
+from kbslam_torch.parallel.dist import ShardGroup
 
 # depth clamp for observations whose landmark moves behind the camera:
 # the residual stays finite and large (the LM guard rejects such steps)
@@ -74,6 +85,36 @@ class GlobalBAStats(NamedTuple):
     retries: torch.Tensor    # int32 damping levels tried in the round
     pcg_iters: torch.Tensor  # int32 live PCG trips across the retries
     lam: torch.Tensor        # damping after each round
+
+
+class _Reduce(NamedTuple):
+    """The reference's collectives of one solve, the identity on one
+    device: ``total`` sums a camera block's partial over the ranks,
+    ``lm`` reduces the [P, ...] landmark sums (all-reduce, or reduce-
+    scatter to this rank's [P/W, ...] rows with landmark sharding),
+    ``full`` gathers landmark rows back to [P, ...], and ``first`` is
+    the id of this rank's first landmark row."""
+    total: Callable
+    lm: Callable
+    full: Callable
+    first: int
+
+
+def _identity(t):
+    return t
+
+
+def _reduce(group: Optional[ShardGroup], landmark_sharded: bool,
+            n_points: int) -> _Reduce:
+    """The collectives of a solve over ``group``; raises ``ValueError``,
+    before any collective, when landmark sharding cannot split the
+    ``n_points`` landmarks evenly."""
+    if group is None:
+        return _Reduce(_identity, _identity, _identity, 0)
+    if not landmark_sharded:
+        return _Reduce(group.sum, group.sum, _identity, 0)
+    first, _ = group.rows(n_points, "landmarks (landmark_sharded)")
+    return _Reduce(group.sum, group.sum_scatter, group.gather, first)
 
 
 def _gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -159,7 +200,8 @@ def _robust_cost(cam_q, cam_t, mp_pos, d: GlobalBAData, intr, depth_rows,
 
 
 class _Linearization(NamedTuple):
-    """The damping-independent normal equations of one round."""
+    """The damping-independent normal equations of one round (landmark
+    rows: all P, or this rank's P/W with landmark sharding)."""
     cost0: torch.Tensor
     H_pp: torch.Tensor   # [P, 3, 3]
     b_p: torch.Tensor    # [P, 3]
@@ -170,31 +212,34 @@ class _Linearization(NamedTuple):
 
 
 def _linearize(d: GlobalBAData, intr, depth_rows, delta,
-               sum_p: SumById) -> _Linearization:
+               sum_p: SumById, red: _Reduce) -> _Linearization:
     r, w, J_cam, J_pt, cost0 = _per_obs_terms(d, intr, depth_rows, delta)
     C, F = d.mp_id.shape
-    P = d.mp_pos.shape[0]
     Hp_obs = torch.einsum("cfri,cfr,cfrj->cfij", J_pt, w, J_pt)
     bp_obs = -torch.einsum("cfri,cfr,cfr->cfi", J_pt, w, r)
     ones = torch.ones((C * F, 1), dtype=torch.float32, device=r.device)
-    lm = sum_p(torch.cat([Hp_obs.reshape(-1, 9), bp_obs.reshape(-1, 3),
-                          ones], dim=1), exact=True)
-    p_ids = torch.arange(P, device=r.device)
+    lm = red.lm(sum_p(torch.cat([Hp_obs.reshape(-1, 9),
+                                 bp_obs.reshape(-1, 3), ones], dim=1),
+                      exact=True))
+    P = lm.shape[0]
+    p_ids = red.first + torch.arange(P, device=r.device)
     p_act = (lm[:, 12] > 0) & (p_ids != d.anchor_mp)
     maskc = d.cam_free.to(torch.float32)
     H_cc = torch.einsum("cfri,cfr,cfrj->cij", J_cam, w, J_cam)
     b_c = -torch.einsum("cfri,cfr,cfr->ci", J_cam, w, r) * maskc[:, None]
     U = torch.einsum("cfri,cfr,cfrj->cfij", J_cam, w, J_pt)
     U = U * maskc[:, None, None, None]
-    return _Linearization(cost0, lm[:, :9].reshape(P, 3, 3), lm[:, 9:12],
-                          p_act, H_cc, b_c, U)
+    return _Linearization(red.total(cost0), lm[:, :9].reshape(P, 3, 3),
+                          lm[:, 9:12], p_act, H_cc, b_c, U)
 
 
 def _damped_solve(lin: _Linearization, d: GlobalBAData, lam, sum_p: SumById,
-                  pcg_iters: int, pcg_tol: float, early_stop: bool):
+                  pcg_iters: int, pcg_tol: float, early_stop: bool,
+                  red: _Reduce):
     """The damped system of the cached linearization, solved by PCG:
-    (delta_c, delta_p, live PCG trips). ``early_stop`` masks the trips
-    after ``rz <= pcg_tol^2 rz0``; without it all ``pcg_iters`` run."""
+    (delta_c, delta_p [P, 3], live PCG trips). ``early_stop`` masks the
+    trips after ``rz <= pcg_tol^2 rz0``; without it all ``pcg_iters``
+    run."""
     dev = lin.H_cc.device
     eye3 = torch.eye(3, device=dev)
     eye6 = torch.eye(6, device=dev)
@@ -208,14 +253,15 @@ def _damped_solve(lin: _Linearization, d: GlobalBAData, lam, sum_p: SumById,
     U = lin.U
 
     # reduced right-hand side b~ = b_c - U Hpp^-1 b_p
-    Hib = torch.einsum("pij,pj->pi", Hpp_inv, lin.b_p)
+    Hib = red.full(torch.einsum("pij,pj->pi", Hpp_inv, lin.b_p))
     b_t = lin.b_c - torch.einsum("cfij,cfj->ci", U,
                                  _gather_rows(Hib, d.mp_id) * act)
 
     # SCHUR_JACOBI: the 6x6 diagonal blocks of S, floored so that a free
     # camera with no active observation does not NaN every dot product
     HiU = torch.einsum("cfkj,cfjl->cfkl", U,
-                       _gather_rows(Hpp_inv, d.mp_id) * act[..., None])
+                       _gather_rows(red.full(Hpp_inv), d.mp_id)
+                       * act[..., None])
     S_diag = H_cc_d - torch.einsum("cfkl,cfml->ckm", HiU, U)
     S_diag = S_diag + (1.0 - maskc)[:, None, None] * eye6
     S_diag = S_diag + 1e-8 * eye6
@@ -225,8 +271,8 @@ def _damped_solve(lin: _Linearization, d: GlobalBAData, lam, sum_p: SumById,
         x = x * maskc[:, None]
         t1 = torch.einsum("cij,cj->ci", H_cc_d, x)
         UTx = torch.einsum("cfij,ci->cfj", U, x) * act        # [C, F, 3]
-        v = sum_p(UTx.reshape(-1, 3), exact=True)
-        wv = torch.einsum("pij,pj->pi", Hpp_inv, v)
+        v = red.lm(sum_p(UTx.reshape(-1, 3), exact=True))
+        wv = red.full(torch.einsum("pij,pj->pi", Hpp_inv, v))
         t2 = torch.einsum("cfij,cfj->ci", U, _gather_rows(wv, d.mp_id) * act)
         return (t1 - t2) * maskc[:, None]
 
@@ -237,16 +283,16 @@ def _damped_solve(lin: _Linearization, d: GlobalBAData, lam, sum_p: SumById,
     rr = b_t
     z = precond(rr)
     p = z
-    rz = torch.sum(rr * z)
+    rz = red.total(torch.sum(rr * z))
     stop = pcg_tol * pcg_tol * rz
     k = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(pcg_iters):
         Ap = S_apply(p)
-        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
+        alpha = rz / torch.clamp(red.total(torch.sum(p * Ap)), min=1e-20)
         x_n = x + alpha * p
         rr_n = rr - alpha * Ap
         z_n = precond(rr_n)
-        rz_n = torch.sum(rr_n * z_n)
+        rz_n = red.total(torch.sum(rr_n * z_n))
         beta = rz_n / torch.clamp(rz, min=1e-20)
         p_n = z_n + beta * p
         if early_stop:
@@ -262,9 +308,9 @@ def _damped_solve(lin: _Linearization, d: GlobalBAData, lam, sum_p: SumById,
 
     # landmark back-substitution
     UTd = torch.einsum("cfij,ci->cfj", U, delta_c) * act
-    v = sum_p(UTd.reshape(-1, 3), exact=True)
-    delta_p = (torch.einsum("pij,pj->pi", Hpp_inv, lin.b_p - v)
-               * lin.p_act.to(torch.float32)[:, None])
+    v = red.lm(sum_p(UTd.reshape(-1, 3), exact=True))
+    delta_p = red.full(torch.einsum("pij,pj->pi", Hpp_inv, lin.b_p - v)
+                       * lin.p_act.to(torch.float32)[:, None])
     return delta_c, delta_p, k
 
 
@@ -284,28 +330,32 @@ def _landmark_plan(d: GlobalBAData) -> SumById:
 
 def global_ba_step(data: GlobalBAData, intr: Intrinsics, pcg_iters: int = 30,
                    damping: float = 1e-4, depth_rows: bool = False,
-                   huber_delta: float = 1.0):
+                   huber_delta: float = 1.0,
+                   group: Optional[ShardGroup] = None):
     """One damped Gauss-Newton step with ``pcg_iters`` PCG trips. Returns
     (updated data, pre-step robust cost). Unguarded: the step is applied
-    even when it raises the cost; prefer ``global_ba_solve``."""
+    even when it raises the cost; prefer ``global_ba_solve``. Over a
+    ``group``, ``data`` is this rank's camera block
+    (``shard_global_data``), and so are the returned cameras."""
+    red = _reduce(group, False, data.mp_pos.shape[0])
     sum_p = _landmark_plan(data)
-    lin = _linearize(data, intr, depth_rows, huber_delta, sum_p)
+    lin = _linearize(data, intr, depth_rows, huber_delta, sum_p, red)
     lam = torch.full((), damping, dtype=torch.float32,
                      device=data.cam_q.device)
     delta_c, delta_p, _ = _damped_solve(lin, data, lam, sum_p, pcg_iters,
-                                        0.0, early_stop=False)
+                                        0.0, False, red)
     q, t, mp = _trial_point(data, delta_c, delta_p)
     return data._replace(cam_q=q, cam_t=t, mp_pos=mp), lin.cost0
 
 
 def _lm_round(d: GlobalBAData, lam, intr, depth_rows, delta, sum_p,
-              pcg_iters, pcg_tol, max_retries):
+              pcg_iters, pcg_tol, max_retries, red: _Reduce):
     """One Levenberg-Marquardt round: linearize once, then retry the
     damped solve with growing damping until the trial cost drops below
     the round's start (at most ``max_retries`` levels; the trips after
     an accepted level are masked). Returns (data at the accepted point,
     lam, cost0, accepted cost, accepted, tries, live PCG trips)."""
-    lin = _linearize(d, intr, depth_rows, delta, sum_p)
+    lin = _linearize(d, intr, depth_rows, delta, sum_p, red)
     dev = lin.cost0.device
     accepted = torch.zeros((), dtype=torch.bool, device=dev)
     tries = torch.zeros((), dtype=torch.int32, device=dev)
@@ -314,9 +364,10 @@ def _lm_round(d: GlobalBAData, lam, intr, depth_rows, delta, sum_p,
     for _ in range(max_retries):
         live = ~accepted
         delta_c, delta_p, k = _damped_solve(lin, d, lam, sum_p, pcg_iters,
-                                            pcg_tol, early_stop=True)
+                                            pcg_tol, True, red)
         tq, tt, tmp = _trial_point(d, delta_c, delta_p)
-        tcost = _robust_cost(tq, tt, tmp, d, intr, depth_rows, delta)
+        tcost = red.total(_robust_cost(tq, tt, tmp, d, intr, depth_rows,
+                                       delta))
         acc = live & (tcost < lin.cost0)
         nq, nt, nmp, ncost = (torch.where(acc, a, b) for a, b in
                               zip((tq, tt, tmp, tcost), (nq, nt, nmp, ncost)))
@@ -334,14 +385,23 @@ def global_ba_solve(data: GlobalBAData, intr: Intrinsics, iters: int = 5,
                     pcg_iters: int = 30, init_damping: float = 1e-4,
                     depth_rows: bool = False, huber_delta: float = 1.0,
                     pcg_tol: float = 1e-2, max_retries: int = 4,
-                    return_stats: bool = False):
+                    return_stats: bool = False,
+                    group: Optional[ShardGroup] = None,
+                    landmark_sharded: bool = False):
     """LM-guarded global BA: ``iters`` trust-region rounds, each
     linearizing once and retrying growing damping on rejection, PCG
     stopping at relative residual ``pcg_tol`` (``pcg_iters`` is the cap).
     Returns (data, costs [iters + 1]): costs[0] the initial robust cost,
     costs[i + 1] the accepted cost after round i (flat where no damping
     level descended), non-increasing by construction; with
-    ``return_stats`` also ``GlobalBAStats``. Makes no host read."""
+    ``return_stats`` also ``GlobalBAStats``. Makes no host read.
+
+    Over a ``group``, ``data`` is this rank's camera block
+    (``shard_global_data``) and so are the returned cameras; landmarks,
+    costs and stats are every rank's. ``landmark_sharded`` reduce-
+    scatters the landmark normal equations (P divisible by the world
+    size, else ``ValueError``); without a group it changes nothing."""
+    red = _reduce(group, landmark_sharded, data.mp_pos.shape[0])
     sum_p = _landmark_plan(data)
     lam = torch.full((), init_damping, dtype=torch.float32,
                      device=data.cam_q.device)
@@ -349,7 +409,7 @@ def global_ba_solve(data: GlobalBAData, intr: Intrinsics, iters: int = 5,
     for _ in range(iters):
         data, lam, c0, ncost, acc, tries, used = _lm_round(
             data, lam, intr, depth_rows, huber_delta, sum_p, pcg_iters,
-            pcg_tol, max_retries)
+            pcg_tol, max_retries, red)
         cost0 = c0 if cost0 is None else cost0
         hist.append(ncost)
         accs.append(acc)
@@ -362,6 +422,44 @@ def global_ba_solve(data: GlobalBAData, intr: Intrinsics, iters: int = 5,
     return data, costs, GlobalBAStats(costs[1:], torch.stack(accs),
                                       torch.stack(rets), torch.stack(pcgs),
                                       torch.stack(lams))
+
+
+# the fields with a leading camera axis (the rest are every rank's)
+_CAMERA_FIELDS = 9
+
+
+def shard_global_data(data: GlobalBAData, group: ShardGroup) -> GlobalBAData:
+    """This rank's block of the cameras and their observations, with the
+    landmarks and the anchor kept whole: the reference's ``device_put``
+    with the camera sharding. Raises ``ValueError`` when the cameras do
+    not split evenly over the ranks."""
+    return GlobalBAData(*(group.block(x) for x in data[:_CAMERA_FIELDS]),
+                        *data[_CAMERA_FIELDS:])
+
+
+def gather_global_data(data: GlobalBAData, group: ShardGroup) -> GlobalBAData:
+    """Every rank's camera block stacked in rank order: the whole problem
+    on every rank (the inverse of ``shard_global_data``)."""
+    return GlobalBAData(*(group.gather(x) for x in data[:_CAMERA_FIELDS]),
+                        *data[_CAMERA_FIELDS:])
+
+
+def dryrun_sharded_global_ba(group: ShardGroup) -> None:
+    """The reference's multi-device smoke check: a synthetic problem of
+    max(8, W) cameras, camera-sharded over ``group``, 2 guarded rounds of
+    at most 10 PCG trips; raises unless the costs and cameras are finite
+    and the last cost is no higher than the first."""
+    data, intr, _ = make_synthetic_global_problem(
+        np.random.default_rng(0), group.device, n_cams=max(8, group.world))
+    out, costs = global_ba_solve(shard_global_data(data, group), intr,
+                                 iters=2, pcg_iters=10, group=group)
+    costs = costs.cpu()
+    if not bool(torch.isfinite(costs).all()):
+        raise AssertionError(f"global BA cost not finite: {costs}")
+    if not bool(torch.isfinite(out.cam_t).all()):
+        raise AssertionError("global BA produced NaNs")
+    if not bool(costs[-1] <= costs[0]):
+        raise AssertionError(f"LM guard failed to be monotone: {costs}")
 
 
 # ---------------------------------------------------------------------------

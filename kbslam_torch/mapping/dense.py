@@ -16,9 +16,16 @@ float32 ops as float32, as JAX's weak types do.
 
 Like the reference's, the volume is not re-warped by loop-closure
 corrections (a TSDF cannot be carried rigidly per keyframe): fuse again
-offline from the corrected poses with ``integrate_sequence``. The
-sharded variants of the reference (``shard_tsdf``,
-``make_sharded_integrate``) are not ported.
+offline from the corrected poses with ``integrate_sequence``.
+
+Over a process group (``parallel.dist.ShardGroup``) the volume is split
+into slabs of its leading (x) axis, one per rank (``shard_tsdf``); each
+rank fuses its [nx/W, ny, nz] slab from its own copy of the depth image
+and pose (``make_sharded_integrate``). A voxel's update reads nothing
+but its own centre and the depth image, so fusion makes no collective,
+and a slab's voxels equal the whole volume's bit for bit: their centres
+come from the same expression of their global x index.
+``gather_tsdf`` stacks the slabs back.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from kbslam_torch.config import DenseMapConfig
 from kbslam_torch.device import pick_device
 from kbslam_torch.geom.camera import Intrinsics, distort_points
 from kbslam_torch.geom.se3 import SE3
+from kbslam_torch.parallel.dist import ShardGroup, block_tree, gather_tree
 
 
 class TSDFState(NamedTuple):
@@ -46,11 +54,15 @@ def empty_tsdf(cfg: DenseMapConfig, device=None) -> TSDFState:
                                         device=dev))
 
 
-def _voxel_centers(cfg: DenseMapConfig, device) -> torch.Tensor:
-    """[V, 3] world positions of voxel centers, built on the device (no
-    host copy, so the call can be captured)."""
-    axes = [(torch.arange(n, dtype=torch.float32, device=device) + 0.5)
-            * cfg.voxel_size + o for n, o in zip(cfg.dims, cfg.origin)]
+def _voxel_centers(cfg: DenseMapConfig, device, x0: int,
+                   nx: int) -> torch.Tensor:
+    """[V, 3] world positions of the centers of the voxels with x index
+    in [x0, x0 + nx), built on the device (no host copy, so the call can
+    be captured)."""
+    axes = [(torch.arange(a, a + n, dtype=torch.float32, device=device)
+             + 0.5) * cfg.voxel_size + o
+            for a, n, o in zip((x0, 0, 0), (nx,) + tuple(cfg.dims[1:]),
+                               cfg.origin)]
     grid = torch.meshgrid(*axes, indexing="ij")
     return torch.stack(grid, dim=-1).reshape(-1, 3)
 
@@ -62,14 +74,18 @@ def _rounded_index(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def integrate(state: TSDFState, depth_m: torch.Tensor, pose: SE3,
-              intr: Intrinsics, cfg: DenseMapConfig) -> TSDFState:
+              intr: Intrinsics, cfg: DenseMapConfig,
+              x0: int = 0) -> TSDFState:
     """Fuse one metric depth image taken at camera-to-world ``pose``.
 
     Projective TSDF: for each voxel center X, sdf = depth(pi(X_cam)) -
     z(X_cam), clamped to +-truncation and averaged into the volume where
-    observed (in front of, or within the band behind, the surface)."""
+    observed (in front of, or within the band behind, the surface).
+    ``state`` is the whole volume or the slab of its x rows from ``x0``
+    on."""
     H, W = depth_m.shape
-    X = _voxel_centers(cfg, depth_m.device)                   # [V, 3]
+    shape = state.tsdf.shape
+    X = _voxel_centers(cfg, depth_m.device, x0, shape[0])    # [V, 3]
     Xc = pose.inverse().apply(X)                              # [V, 3]
     z = Xc[:, 2]
     zs = torch.where(z > 0, z, 1.0)
@@ -109,7 +125,7 @@ def integrate(state: TSDFState, depth_m: torch.Tensor, pose: SE3,
     t = torch.where(w_sum > 0, (t_old * w_old + tsdf_new * w_new)
                     / torch.clamp_min(w_sum, 1.0), t_old)
     w = torch.clamp_max(w_sum, cfg.max_weight)
-    return TSDFState(tsdf=t.reshape(cfg.dims), weight=w.reshape(cfg.dims))
+    return TSDFState(tsdf=t.reshape(shape), weight=w.reshape(shape))
 
 
 @functools.lru_cache(maxsize=8)
@@ -121,6 +137,32 @@ def make_integrate(cfg: DenseMapConfig, intr: Intrinsics,
     def fuse(s, d, q, t):
         return integrate(s, d.to(torch.float32) * depth_scale, SE3(q, t),
                          intr, cfg)
+    return fuse
+
+
+def shard_tsdf(state: TSDFState, group: ShardGroup) -> TSDFState:
+    """This rank's slab of the volume: x rows [r nx/W, (r + 1) nx/W), as
+    copies. Raises ``ValueError`` when nx is not divisible by the world
+    size W."""
+    return block_tree(state, group)
+
+
+def gather_tsdf(state: TSDFState, group: ShardGroup) -> TSDFState:
+    """The whole volume on every rank, the slabs stacked in rank order."""
+    return gather_tree(state, group)
+
+
+def make_sharded_integrate(cfg: DenseMapConfig, intr: Intrinsics,
+                           group: ShardGroup, depth_scale: float = 1.0):
+    """``fuse(slab, depth_raw, pose_q, pose_t) -> slab``, as
+    ``make_integrate`` on this rank's slab of the volume (``shard_tsdf``),
+    with the depth image and pose every rank's. Makes no collective.
+    Raises ``ValueError`` when nx is not divisible by the world size."""
+    x0, _ = group.rows(cfg.dims[0], "the volume's x voxels")
+
+    def fuse(s, d, q, t):
+        return integrate(s, d.to(torch.float32) * depth_scale, SE3(q, t),
+                         intr, cfg, x0)
     return fuse
 
 

@@ -1,9 +1,15 @@
 """Multi-stream tracking: N independent RGB-D streams in one program.
 
-Port of kbslam/parallel/multistream.py on one device (BASELINE.json
-config 4: 8 streams of 640x480 on one chip). As in the reference, every
-leaf of the stream-batched ``TrackState`` carries a leading stream axis
-[S, ...], so ``state.map.num_kf`` is [S].
+Port of kbslam/parallel/multistream.py (BASELINE.json config 4: 8
+streams of 640x480 on one chip). As in the reference, every leaf of the
+stream-batched ``TrackState`` carries a leading stream axis [S, ...], so
+``state.map.num_kf`` is [S].
+
+Over a process group (``group``, a ``parallel.dist.ShardGroup``), each
+rank holds a contiguous block of S/W streams (``shard_streams``), the
+counterpart of the reference's ``shard_streams`` onto a mesh, and runs
+only those; ``gather_streams`` stacks the blocks back. As in the
+reference, no collective runs while tracking: the streams share nothing.
 
 The reference ``vmap``s the tracking step. The port cannot: the step
 launches the describe kernel through ctypes and indexes by data, which
@@ -22,25 +28,26 @@ streams independent, which is vmap's meaning:
 
 Stream i of frame f draws its RANSAC sets from ``hash_sampler(seed,
 f * S + i)``, the counter the reference folds into its keys
-(kbslam/parallel/multistream.py:124-127). The reference reads stream
-0's ``frame_count`` for every stream; every stream's count advances once
+(kbslam/parallel/multistream.py:124-127), with i the stream's global
+index and S the global count: a rank's first stream is stream
+rank * S/W, whatever block it runs in. The reference reads stream 0's
+``frame_count`` for every stream; every stream's count advances once
 per step, so each stream reads its own here, and no graph reads
 another's row.
 
 The insertion in the port's step is always the masked one, so the
 reference's ``branchless_insert`` switch has no counterpart.
-``shard_streams`` (placing the streams over several devices) belongs to
-the multi-device work (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
 from kbslam_torch.device import graph_capture
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.mapping.state import MapState
+from kbslam_torch.parallel.dist import ShardGroup, block_tree, gather_tree
 from kbslam_torch.pipeline import (PendingInsert, TrackOutput, TrackState,
                                    apply_pending, empty_pending, init_state,
                                    track_step)
@@ -55,6 +62,27 @@ def batched_init_state(cfg, num_streams: int, device) -> TrackState:
         MapState(*(t.expand((num_streams,) + t.shape).clone()
                    for t in s.map)),
         *(t.expand((num_streams,) + t.shape).clone() for t in s[1:]))
+
+
+def shard_streams(tree, group: ShardGroup):
+    """This rank's block of S/W streams of a stream-batched tree (a
+    ``TrackState``, ``TrackOutput`` or tensor), as copies; raises
+    ``ValueError``, before any collective, when S is not divisible by the
+    world size W."""
+    return block_tree(tree, group)
+
+
+def gather_streams(tree, group: ShardGroup):
+    """Every rank's block of streams of a stream-batched tree, stacked in
+    rank order: the whole batch on every rank."""
+    return gather_tree(tree, group)
+
+
+def _block(num_streams: int, group: Optional[ShardGroup]):
+    """(first global stream index, streams) of this rank's block."""
+    if group is None:
+        return 0, num_streams
+    return group.rows(num_streams, "streams")
 
 
 def stream_state(state: TrackState, i: int) -> TrackState:
@@ -156,17 +184,21 @@ def _sampler(seed: int, st: TrackState, num_streams: int, i: int):
 
 
 def make_multistream_step(cfg, intr: Intrinsics, num_streams: int,
-                          seed: int = 0):
+                          seed: int = 0, group: Optional[ShardGroup] = None):
     """``step(state[S], rgb [S, H, W, 3], depth [S, H, W], serial=False)
     -> (state[S], TrackOutput [S, ...])``: one tracking step of every
     stream, with immediate insertion. On CUDA the returned state is the
     step's own storage, which the next call updates in place (the
-    reference donates its input state)."""
+    reference donates its input state). Over a ``group``,
+    ``num_streams`` is still the whole S, and the state, frames and
+    outputs are this rank's block of S/W streams (``shard_streams``)."""
+    first, count = _block(num_streams, group)
+
     def body(i, st, rgb, depth):
         return track_step(st, rgb[i], depth[i], None, intr, cfg,
-                          _sampler(seed, st, num_streams, i))
+                          _sampler(seed, st, num_streams, first + i))
 
-    streams = _PerStream(body, num_streams)
+    streams = _PerStream(body, count)
 
     def step(state, rgb, depth, serial: bool = False):
         state, outs = streams(state, (rgb, depth), serial)
@@ -177,7 +209,8 @@ def make_multistream_step(cfg, intr: Intrinsics, num_streams: int,
 
 
 def make_multistream_scan(cfg, intr: Intrinsics, num_streams: int,
-                          apply_every: int = 4, seed: int = 0):
+                          apply_every: int = 4, seed: int = 0,
+                          group: Optional[ShardGroup] = None):
     """Deferred-insertion multistream tracking: ``run(state[S],
     rgb [T, S, H, W, 3], depth [T, S, H, W], serial=False) -> (state[S],
     num_inliers [T, S])``, T a multiple of ``apply_every`` = K.
@@ -188,18 +221,22 @@ def make_multistream_scan(cfg, intr: Intrinsics, num_streams: int,
     a keyframe lands up to K - 1 frames after the frame that flagged it,
     and the frames in between keep matching the previous keyframe. K may
     not exceed the policy's ``min_frame_gap``, so a block holds at most
-    one flag per stream. On CUDA a stream's block is one graph."""
+    one flag per stream. On CUDA a stream's block is one graph. Over a
+    ``group``, as ``make_multistream_step``: the frames, the state and
+    the inlier counts [T, S/W] are this rank's streams."""
     if apply_every > cfg.policy.min_frame_gap:
         raise ValueError("apply_every must not exceed min_frame_gap: a "
                          "second flag could overwrite an unapplied pending "
                          "insertion")
     K = int(apply_every)
+    first, count = _block(num_streams, group)
 
     def body(i, st, rgb, depth):
         pend, ninl = empty_pending(cfg, st.pose_q.device), []
         for k in range(K):
             st, out, new = track_step(st, rgb[k, i], depth[k, i], None, intr,
-                                      cfg, _sampler(seed, st, num_streams, i),
+                                      cfg, _sampler(seed, st, num_streams,
+                                                    first + i),
                                       defer_insert=True)
             pend = PendingInsert(*(torch.where(new.do, n, o)
                                    for n, o in zip(new, pend)))
@@ -207,7 +244,7 @@ def make_multistream_scan(cfg, intr: Intrinsics, num_streams: int,
         st = st._replace(map=apply_pending(st.map, pend, intr))
         return st, torch.stack(ninl)
 
-    streams = _PerStream(body, num_streams)
+    streams = _PerStream(body, count)
 
     def run(state, rgb, depth, serial: bool = False):
         T = rgb.shape[0]

@@ -160,23 +160,42 @@ def map_point_positions(m) -> np.ndarray:
 
 
 def run_global_ba_on_map(map_state, intr: Intrinsics, ba_cfg, steps: int = 5,
-                         pcg_iters: int = 30):
+                         pcg_iters: int = 30, group=None):
     """A guarded global bundle adjustment over every keyframe of the ring
     (``ba/global_ba.global_ba_solve``: ``steps`` LM rounds, PCG capped at
     ``pcg_iters``), with the oldest real keyframe held fixed. Returns
     (new map state, the per-round costs as floats). One host read of the
-    insertion count sizes the problem, and one of the costs ends it."""
-    from kbslam_torch.ba.global_ba import (from_map_state, global_ba_solve,
-                                           write_back)
+    insertion count sizes the problem, and one of the costs ends it.
 
+    Over a ``group`` (``parallel.dist.ShardGroup``) every rank holds the
+    same map, solves its block of the cameras and returns the whole new
+    map; the window is a multiple of the world size W (the ring's
+    capacity rounded down to one, short windows padded up to one), and a
+    ring of fewer than W keyframes raises ``ValueError``."""
+    from kbslam_torch.ba.global_ba import (from_map_state,
+                                           gather_global_data,
+                                           global_ba_solve,
+                                           shard_global_data, write_back)
+
+    world = 1 if group is None else group.world
     # never wider than the ring: after a wrap, a wider window would
     # alias one slot into two real rows (observations counted twice)
-    n_cams = max(min(int(map_state.num_kf), map_state.capacity_kf), 1)
+    cap = (map_state.capacity_kf // world) * world
+    if cap < world:
+        raise ValueError(f"a ring of {map_state.capacity_kf} keyframes "
+                         f"cannot be split over {world} ranks")
+    n_kf = min(int(map_state.num_kf), cap)
+    n_cams = max(-(-n_kf // world) * world, world)
     data, slots, real = from_map_state(map_state, intr, ba_cfg, n_cams)
+    if group is not None:
+        data = shard_global_data(data, group)
     data, costs = global_ba_solve(data, intr, iters=steps,
                                   pcg_iters=pcg_iters,
                                   depth_rows=ba_cfg.depth_residuals,
-                                  huber_delta=ba_cfg.huber_delta)
+                                  huber_delta=ba_cfg.huber_delta,
+                                  group=group)
+    if group is not None:
+        data = gather_global_data(data, group)
     return (write_back(map_state, data, slots, real),
             [float(c) for c in costs.cpu().numpy()])
 
@@ -657,13 +676,15 @@ class SLAM(DenseViews):
         if self._loop is not None:
             self._state = self._loop.tick(self._state, self._frame, None)
 
-    def run_global_ba(self, steps: int = 5, pcg_iters: int = 30) -> list:
+    def run_global_ba(self, steps: int = 5, pcg_iters: int = 30,
+                      group=None) -> list:
         """A global bundle adjustment over every keyframe of the ring
-        (``run_global_ba_on_map``), written into the live map; returns
-        the per-round costs."""
+        (``run_global_ba_on_map``, camera-sharded over ``group`` when one
+        is given), written into the live map; returns the per-round
+        costs."""
         new_map, costs = run_global_ba_on_map(
             self.state.map, self.intr, self.config.ba, steps=steps,
-            pcg_iters=pcg_iters)
+            pcg_iters=pcg_iters, group=group)
         self._state = self._state._replace(map=new_map)
         return costs
 

@@ -503,3 +503,39 @@ def test_multistream_side_streams_serial_and_single_agree(cuda_device):
             st, o = track_step(st, rgb[t, i], dep[t, i], None, intr, cfg,
                                hash_sampler(0, st.frame_count * S + i))
             assert all(torch.equal(x, y[i]) for x, y in zip(o, runs[0][t]))
+
+
+def _nccl_solve_rank(group):
+    """One rank of an NCCL group: the synthetic global problem solved
+    unsharded, camera-sharded and landmark-sharded on this rank's card."""
+    from kbslam_torch.ba import global_ba as gba
+
+    data, intr, _ = gba.make_synthetic_global_problem(
+        np.random.default_rng(0), group.device)
+    res = {}
+    for name, g, ls in (("one", None, False), ("cameras", group, False),
+                        ("landmarks", group, True)):
+        d = data if g is None else gba.shard_global_data(data, g)
+        out, costs, stats = gba.global_ba_solve(
+            d, intr, iters=4, pcg_iters=25, return_stats=True, group=g,
+            landmark_sharded=ls)
+        if g is not None:
+            out = gba.gather_global_data(out, g)
+        res[name] = [t.cpu() for t in list(out) + [costs] + list(stats)]
+    res["counts"] = {op: list(c) for op, c in group.counts.items()}
+    res["backend"] = str(torch.distributed.get_backend())
+    return res
+
+
+def test_nccl_group_of_one_equals_the_unsharded_solve(cuda_device):
+    """An NCCL group of one rank (``parallel.dist.spawn`` on the card):
+    the camera-sharded and the landmark-sharded solve equal the unsharded
+    one bit for bit, and the collectives ran."""
+    from kbslam_torch.parallel import dist
+
+    (res,) = dist.spawn(_nccl_solve_rank, 1, "cuda", timeout_s=300)
+    assert res["backend"] == "nccl"
+    for name in ("cameras", "landmarks"):
+        assert all(torch.equal(a, b) for a, b in zip(res[name], res["one"]))
+    assert res["counts"]["all_reduce"][0] > 0
+    assert res["counts"]["reduce_scatter"][0] > 0

@@ -27,9 +27,10 @@ JAX's (ints and masks exactly, floats within 1e-6); 4 guarded rounds and
 the depth-rows gate of tests/test_global_ba_from_map.py:59-104 on the
 port's numbers.
 
-The reference's 8-device cases (``test_global_ba_matches_single_device``,
+The reference's multi-device cases (``test_global_ba_matches_single_device``,
 ``test_landmark_sharded_solve_matches_replicated``,
-``test_dryrun_multichip_contract``) need several cards (ROADMAP.md).
+``test_dryrun_multichip_contract``) run over gloo process groups in
+tests/test_torch_distributed.py.
 """
 import dataclasses
 

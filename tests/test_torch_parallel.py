@@ -20,8 +20,9 @@ Bounds:
 
 ``test_parallel.py::test_branchless_insert_matches_cond_path`` has no
 case here: the port's insertion is always the masked one, so there is no
-second insertion path to hold it against. The 8-device cases (a mesh,
-``shard_streams``) need several cards (ROADMAP.md).
+second insertion path to hold it against. The streams sharded over a
+process group (``shard_streams``) are held to this file's unsharded step
+in tests/test_torch_distributed.py.
 """
 import jax
 import jax.numpy as jnp

@@ -206,6 +206,7 @@ def test_port_imports_no_jax():
             "kbslam_torch.loop.reloc, kbslam_torch.mapping.cull, "
             "kbslam_torch.mapping.submap, kbslam_torch.mapping.icp, "
             "kbslam_torch.ba.global_ba, kbslam_torch.parallel.multistream, "
+            "kbslam_torch.parallel.dist, "
             "kbslam_torch.io.zmq_camera, kbslam_torch.io.proto.as_camera_pb2, "
             "kbslam_torch.viz.rerun_viewer, kbslam_torch.utils.profiling, "
             "kbslam_torch.utils.logging; "

@@ -1,7 +1,8 @@
 """The port stands on its own and runs on the card unless told otherwise.
 
 - A copy of ``kbslam_torch/`` alone in a temporary directory, with no
-  ``kbslam/`` beside it, imports and tracks through its CLI on the CPU.
+  ``kbslam/`` beside it, imports and tracks through its CLI on the CPU,
+  and runs the sharded global BA's dryrun over two spawned gloo ranks.
 - ``pick_device()`` without a name raises when there is no CUDA device,
   and so does ``SLAM(..., device=None)``; only an explicit ``"cpu"``
   gives the CPU.
@@ -51,7 +52,8 @@ def test_package_alone_runs_its_cli(tmp_path, extra):
     mods = subprocess.run(
         [sys.executable, "-c", "import sys, kbslam_torch.streaming, "
          "kbslam_torch.io.checkpoint, kbslam_torch.io.tum, kbslam_torch.cli, "
-         "kbslam_torch.parallel.multistream, kbslam_torch.io.zmq_camera, "
+         "kbslam_torch.parallel.multistream, kbslam_torch.parallel.dist, "
+         "kbslam_torch.io.zmq_camera, "
          "kbslam_torch.viz.rerun_viewer, kbslam_torch.utils.profiling, "
          "kbslam_torch.utils.logging;"
          " print(sorted(m for m in sys.modules if m.startswith(('jax', "
@@ -68,6 +70,26 @@ def test_package_alone_runs_its_cli(tmp_path, extra):
     assert summary["frames"] == 4 and summary["success"] == 3
     assert set(summary) >= {"ate_rmse_m", "rpe_trans_m", "rpe_rot_rad"}
     assert "device cpu" in r.stderr
+
+
+def test_package_alone_runs_a_process_group(tmp_path):
+    """Two spawned ranks of the copied package (gloo) run the sharded
+    global BA's dryrun; neither they nor the parent load JAX or kbslam
+    (there is none to load)."""
+    shutil.copytree(REPO / "kbslam_torch", tmp_path / "kbslam_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    code = ("import sys; from kbslam_torch.parallel import dist; "
+            "from kbslam_torch.ba.global_ba import dryrun_sharded_global_ba; "
+            "print(dist.spawn(dryrun_sharded_global_ba, 2, 'cpu', "
+            "timeout_s=120)); "
+            "print(sorted(m for m in sys.modules if m.startswith(('jax', "
+            "'kbslam.')) or m == 'kbslam'))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=tmp_path, env=env, timeout=180)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["[None,", "None]", "[]"], r.stdout
 
 
 def _no_cuda(monkeypatch):
