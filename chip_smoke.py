@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
 and ``python3 chip_smoke.py --only distributed`` runs phase 22 after
 only the phases it is held to (1, 2, phase 5's sequence, 7, 18 and 19),
-for a machine with several cards.
+for a machine with several cards; ``--only gates`` runs phase 23 after
+phases 1 and 2, on phase 6's window.
 
 Phases (each prints one line or more; any failure raises and exits
 non-zero):
@@ -225,18 +226,35 @@ non-zero):
                 phase 7's keyframes fused into a 512^3 volume in voxel
                 slabs, gathered bit-equal to the unsharded ``integrate``
                 on the card, 0 collectives, device ms and peak memory per
-                card. Each rank loads no JAX.
-The dense stages, the atlas, the aligners, global BA and the
-multistream shell are plain torch, not kernels of the kernels line. Then
+                card. Each rank loads no JAX;
+ 23. gates    — the dense reference solver (``ba/lm.py``) on phase 6's
+                full-width window (65,536 landmarks, U [65536, 5, 6, 3]
+                float32) under sync debug mode "error": after 3 and 20 LM
+                trips against the card's compact solve (a layout that
+                holds every active observation) with tests/test_ba.py:
+                175-191's bounds (costs 1e-4 and 0.05, poses 1e-3,
+                landmarks 5e-3 through ``uniq_global``), and against the
+                same dense solve on the CPU with phase 6's (poses 1 mm and
+                0.05 deg after 3 trips, the 20-trip cost within 1e-3);
+                device ms as a replayed graph, launches, host ms, peak
+                memory; then
+                tests/test_pipeline.py's distorted-rendering, static-mask,
+                range-aware rim and blank-frame gates at 240x320 through
+                ``SLAM`` with the port's own draws, and the 640x480
+                full system of tests/test_parity_vs_opencv.py:106 at
+                ``SLAMConfig()`` (refined ATE under 8 mm, keyframe ATE
+                within the CPU oracle's + 1 mm), every gate enforced, the
+                describe kernel once per frame.
+The dense stages, the atlas, the aligners, global BA, the dense
+reference solver and the multistream shell are plain torch, not kernels of the kernels line. Then
 one JSON line about the kernels, the nvidia-smi line, and the result
 line. The describe kernel's launch count sums phases 5, 7 and 10, the
 relocalization attempts of phase 14, phase 16's dense SLAM run, phase
 17's atlas SLAM run, phase 19's runs, phase 21's runs (its chunked
-CLI runs add their replays x 8) and phase 22's ranks. In phases 10, 19
-and 22 the
-wrapper's counter counts the eager calls (the warm-up before the capture
-and the tail; a call inside the capture launches nothing and is not
-counted), and the graph's replays, which no Python runs, add the
+CLI runs add their replays x 8), phase 22's ranks and phase 23's runs.
+In phases 10, 19 and 22 the wrapper's counter counts the eager calls
+(the warm-up before the capture and the tail; a call inside the capture
+launches nothing and is not counted), and the graph's replays, which no Python runs, add the
 stream's replay count times the kernel's launches in one replay, counted
 by torch.profiler.
 
@@ -422,10 +440,12 @@ def real_frame_inputs(dev):
     return caught["args"], caught["kwargs"]["radius"], int(feats.count())
 
 
-def track(slam, seq):
-    """``slam`` after it has processed every frame of ``seq``."""
+def track(slam, seq, masks=None):
+    """``slam`` after it has processed every frame of ``seq``, each with
+    its mask when ``masks`` is given."""
     for i in range(len(seq.rgb)):
-        slam.process(seq.rgb[i], seq.depth[i])
+        slam.process(seq.rgb[i], seq.depth[i],
+                     None if masks is None else masks[i])
     return slam
 
 
@@ -465,14 +485,37 @@ def _angle_deg(qa, qb):
     return torch.rad2deg(2 * torch.atan2(v.norm(dim=-1), w.abs()))
 
 
+def _gap(ta, qa, tb, qb):
+    """(max metres, max degrees) between two sets of poses."""
+    return (float((ta.cpu() - tb.cpu()).norm(dim=-1).max()),
+            float(_angle_deg(qa.cpu(), qb.cpu()).max()))
+
+
 def _pose_gap(a, b):
-    """(max metres, max degrees) between the keyframe poses of two maps."""
-    return (float((a.kf_t.cpu() - b.kf_t.cpu()).norm(dim=-1).max()),
-            float(_angle_deg(a.kf_q.cpu(), b.kf_q.cpu()).max()))
+    """_gap between the keyframe poses of two maps."""
+    return _gap(a.kf_t, a.kf_q, b.kf_t, b.kf_q)
+
+
+def ba_window(dev, seq):
+    """(SLAM with BA off over ``seq`` up to its fifth keyframe, the frame
+    of that keyframe): the full window that phases 6 and 23 solve."""
+    from kbslam_torch import config
+    from kbslam_torch.slam import SLAM
+
+    slam = SLAM(config.SLAMConfig(), seq.K, ba_mode="disabled", device=dev)
+    for i in range(len(seq.rgb)):
+        slam.process(seq.rgb[i], seq.depth[i])
+        if slam.num_keyframes == BA_WINDOW:
+            break
+    if slam.num_keyframes != BA_WINDOW:
+        raise AssertionError(f"{slam.num_keyframes} keyframes in {FRAMES} "
+                             "frames")
+    return slam, i
 
 
 def ba_phase(dev, seq, smi):
-    """One full-width local BA on the card against the CPU (phase 6).
+    """One full-width local BA on the card against the CPU (phase 6);
+    returns the SLAM that holds its window.
 
     The window (a textured plane) has a near-null pose/plane valley: the
     20-trip solve stops part-way along it, and float32 rounding moves
@@ -485,19 +528,10 @@ def ba_phase(dev, seq, smi):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from kbslam_torch import config
     from kbslam_torch.ba.local_ba import local_ba
     from kbslam_torch.mapping.state import MapState, device_copy
-    from kbslam_torch.slam import SLAM
 
-    slam = SLAM(config.SLAMConfig(), seq.K, ba_mode="disabled", device=dev)
-    for i in range(len(seq.rgb)):
-        slam.process(seq.rgb[i], seq.depth[i])
-        if slam.num_keyframes == BA_WINDOW:
-            break
-    if slam.num_keyframes != BA_WINDOW:
-        raise AssertionError(f"{slam.num_keyframes} keyframes in {FRAMES} "
-                             "frames")
+    slam, i = ba_window(dev, seq)
     m, cfg, intr = slam.state.map, slam.config.ba, slam.intr
     local_ba(device_copy(m), intr, cfg)     # warm-up: handles, allocator
     torch.cuda.synchronize()
@@ -558,6 +592,7 @@ def ba_phase(dev, seq, smi):
           f"{stream_ms:.2f} ms (CUDA events around the eager call), kernel "
           f"time {busy_ms:.2f} ms and {len(kernels)} kernel launches "
           f"(torch.profiler), host {host_ms:.2f} ms; {smi}", flush=True)
+    return slam
 
 
 def async_phase(dev, seq, smi):
@@ -3453,6 +3488,368 @@ def distributed_phase(dev, smi, slam7, seq, gba_refs, stream_refs) -> int:
     return launches
 
 
+# 23. the dense reference solver and the reference's last tracking gates
+DIST = (0.22, -0.4, 0.0, 0.0, 0.0)   # tests/test_pipeline.py:149
+# the cv2/scipy oracle at 640x480 (kbslam/eval/reference_slam.py), run on
+# the CPU by tests/test_torch_parity_vs_opencv.py: refined ATE and
+# keyframe ATE, in metres. The oracle is not copied into the port (it
+# runs in the CPU tests, imported from kbslam/), so its bound is not
+# held here.
+ORACLE_640_M = (9.54e-3, 7.90e-3)
+
+
+def dense_solver_check(dev, smi, slam):
+    """(23a) ``ba/lm.py``'s dense solve of phase 6's full-width window on
+    the card: against the card's compact solve with tests/test_ba.py:
+    175-191's bounds, and against the same dense solve on the CPU with
+    phase 6's; the solve under sync debug mode "error"; device ms as a
+    replayed graph, launches, host ms and peak memory.
+
+    Against the compact solve both are held after 3 and after 20 LM
+    trips. Against the CPU the plane window's near-null valley
+    (``ba_phase``) holds the iterates after 3 trips and the 20-trip solve
+    by cost, with its pose gap printed."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from kbslam_torch.ba.compact import compact_problem
+    from kbslam_torch.ba.compact_lm import solve_window_compact
+    from kbslam_torch.ba.lm import solve_window
+    from kbslam_torch.ba.problem import build_problem
+    from kbslam_torch.mapping.state import MapState
+
+    m, cfg, intr = slam.state.map, slam.config.ba, slam.intr
+    cfg3 = dataclasses.replace(cfg, max_iterations=3)
+
+    def dense(mp, c):
+        prob = build_problem(mp, intr, c)
+        return prob, solve_window(prob, mp.mp_pos, intr, c)
+
+    dense(m, cfg)                    # warm-up: handles, allocator
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        prob, sol = dense(m, cfg)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dense(m, cfg)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    graph_ms = cuda_ms(lambda: dense(m, cfg), iters=1, replays=5)
+
+    # the compact solve of the same window; its layout holds every active
+    # observation and landmark (a cut layout would solve another problem)
+    W, F = prob.mp_id.shape
+    n_obs = int(prob.active.sum())
+    n_lm = int((prob.inlier_obs > 0).sum())
+    O = cfg.compact_obs if n_obs <= cfg.compact_obs else W * F
+    L = cfg.compact_landmarks if n_lm <= cfg.compact_landmarks else W * F
+
+    cp = compact_problem(prob, m.mp_pos, O, L)
+    lids = cp.uniq_global.cpu().numpy()
+    lv = cp.l_valid.cpu().numpy()
+
+    def against_compact(d, c):
+        """tests/test_ba.py:175-191's gaps: (initial cost, final cost,
+        max |cam_t|, max |cam_q|, max landmark) of dense and compact."""
+        comp = solve_window_compact(prob, cp, intr, c)
+        return (float(d.initial_cost), float(comp.initial_cost),
+                float(d.final_cost), float(comp.final_cost),
+                float((comp.cam_t - d.cam_t).abs().max()),
+                float((comp.cam_q - d.cam_q).abs().max()),
+                float(np.abs(comp.Xc.cpu().numpy()[lv]
+                             - d.mp_pos.cpu().numpy()[lids[lv]]).max()))
+
+    _, d3 = dense(m, cfg3)
+    vs_compact = [against_compact(d3, cfg3), against_compact(sol, cfg)]
+    ok_c = all(np.isclose(i_d, i_c, rtol=1e-4)
+               and np.isclose(f_d, f_c, rtol=0.05, atol=1e-4)
+               and dt <= 1e-3 and dq <= 1e-3 and dX <= 5e-3
+               for i_d, i_c, f_d, f_c, dt, dq, dX in vs_compact)
+
+    # the same dense solves on the CPU
+    cpu_map = MapState(*(t.cpu() for t in m))
+    _, r3 = dense(cpu_map, cfg3)
+    _, r20 = dense(cpu_map, cfg)
+    gap3 = _gap(d3.cam_t, d3.cam_q, r3.cam_t, r3.cam_q)
+    gap20 = _gap(sol.cam_t, sol.cam_q, r20.cam_t, r20.cam_q)
+    init, final, cpu_final = (float(sol.initial_cost), float(sol.final_cost),
+                              float(r20.final_cost))
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (sol.cam_q, sol.cam_t, sol.mp_pos))
+    ok_cpu = (finite and gap3[0] <= 1e-3 and gap3[1] <= 0.05
+              and final <= init
+              and abs(final - cpu_final) <= 1e-3 * abs(cpu_final))
+    if not (ok_c and ok_cpu):
+        raise AssertionError(
+            f"dense solve on the card: against compact after 3 and 20 trips "
+            f"(costs, poses, landmarks) {vs_compact}; against the CPU after "
+            f"3 trips {gap3}, cost {init} -> {final} (CPU {cpu_final}), "
+            f"finite {finite}")
+    u_mb = m.mp_pos.shape[0] * W * 18 * 4 / 1e6
+    print(f"[gates] dense reference solve (ba/lm.py) of phase 6's window "
+          f"({W} keyframes, {n_obs} active observations, {n_lm} landmarks "
+          f"of {m.mp_pos.shape[0]}; U [{m.mp_pos.shape[0]}, {W}, 6, 3] "
+          f"{u_mb:.1f} MB): cost {init:.3f} -> {final:.3f} (CPU "
+          f"{cpu_final:.3f}), {int(sol.iterations)} iterations; against the "
+          f"card's compact solve (layout O={O}, L={L}) after 3 and 20 trips "
+          f"(initial and final costs dense/compact, max |cam_t| m, max "
+          f"|cam_q|, max landmark m): "
+          f"{[tuple(float(f'{x:.6g}') for x in r) for r in vs_compact]}; "
+          f"against "
+          f"the CPU after 3 trips {gap3[0]:.2e} m and {gap3[1]:.2e} deg, "
+          f"after 20 {gap20[0]:.2e} m and {gap20[1]:.2e} deg (printed); 0 "
+          f"host syncs (sync debug mode 'error'); per solve (with "
+          f"build_problem): device {graph_ms:.2f} ms (CUDA graph replay), "
+          f"kernel time {busy_ms:.2f} ms and {len(kernels)} kernel launches "
+          f"(torch.profiler), host {host_ms:.2f} ms, peak "
+          f"{peak_gb:.4f} GB above the map; {smi}", flush=True)
+
+
+def distorted_sequence(seq):
+    """tests/test_pipeline.py:150-171's warp of ``seq`` through the
+    Brown-Conrady model: I_dist(u_d) = I_rect(undistort(u_d)), with the
+    port's ``undistort_points`` (equal bit for bit to the reference's op
+    by op, tests/test_torch_gates.py)."""
+    from scipy.ndimage import map_coordinates
+
+    from kbslam_torch.geom.camera import Intrinsics, undistort_points
+
+    h, w = seq.depth.shape[1:]
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+    src = undistort_points(Intrinsics.from_matrix(seq.K, dist=DIST),
+                           torch.from_numpy(np.stack([gx.ravel(), gy.ravel()],
+                                                     1))).numpy()
+    coords = np.stack([src[:, 1].reshape(h, w), src[:, 0].reshape(h, w)])
+
+    def warp(img, order):
+        if img.ndim == 3:
+            return np.stack([map_coordinates(img[..., c].astype(np.float32),
+                                             coords, order=order,
+                                             mode="nearest")
+                             for c in range(img.shape[2])], -1).astype(img.dtype)
+        return map_coordinates(img.astype(np.float32), coords, order=order,
+                               mode="nearest").astype(img.dtype)
+
+    return seq._replace(rgb=np.stack([warp(f, 1) for f in seq.rgb]),
+                        depth=np.stack([warp(f, 0) for f in seq.depth]))
+
+
+def rim_gate_check(dev):
+    """tests/test_pipeline.py::test_rim_gate_range_aware_threshold's body
+    on the card's ``extract_frame``; returns the printed counts."""
+    import dataclasses
+
+    from scipy.ndimage import grey_dilation, grey_erosion
+
+    from kbslam_torch import config
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.pipeline import extract_frame
+
+    H, W = 240, 320
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 255, (H, W, 3), dtype=np.uint8)
+    clean = np.full((H, W), 6.0, np.float32)
+    clean[90:150, 120:200] = 1.0
+    noisy = clean + rng.normal(0.0, 1.0, clean.shape).astype(
+        np.float32) * 0.003 * clean**2
+    depth = np.clip(noisy * 1000.0, 1, 65535).astype(np.uint16)
+    true_spread = grey_dilation(clean, 3) - grey_erosion(clean, 3)
+    intr = Intrinsics.from_matrix(np.array(
+        [[260.0, 0, (W - 1) / 2], [0, 260.0, (H - 1) / 2], [0, 0, 1]]))
+    cfg = _cfg240(config)
+
+    def gate_stats(rel):
+        c = cfg.replace(map=dataclasses.replace(cfg.map,
+                                                depth_edge_rel_per_m2=rel))
+        feats, depth_kp = extract_frame(
+            torch.from_numpy(rgb).to(dev),
+            torch.from_numpy(depth.astype(np.int32)).to(dev), None, intr, c)
+        xy = np.round(feats.xy.cpu().numpy()).astype(int)
+        v = (feats.valid.cpu().numpy() & (xy[:, 0] >= 1) & (xy[:, 0] < W - 1)
+             & (xy[:, 1] >= 1) & (xy[:, 1] < H - 1))
+        ts = true_spread[xy[v, 1], xy[v, 0]]
+        kept = depth_kp.cpu().numpy()[v] > 0
+        far = (ts < 0.1) & (clean[xy[v, 1], xy[v, 0]] > 3.0)
+        return kept, far, ts > 1.0
+
+    kept_abs, far_abs, rim_abs = gate_stats(0.0)
+    kept_rel, far_rel, rim_rel = gate_stats(0.03)
+    got = dict(far=int(far_abs.sum()), rim=int(rim_abs.sum()),
+               far_kept_abs=float(kept_abs[far_abs].mean()),
+               far_kept_rel=float(kept_rel[far_rel].mean()),
+               rim_kept_abs=float(kept_abs[rim_abs].mean()),
+               rim_kept_rel=float(kept_rel[rim_rel].mean()))
+    if not (got["far"] > 50 and got["rim"] > 3 and got["far_kept_abs"] < 0.10
+            and got["far_kept_rel"] > 0.70 and got["rim_kept_abs"] < 0.05
+            and got["rim_kept_rel"] < 0.05):
+        raise AssertionError(f"rim gate on the card: {got}")
+    return got
+
+
+def tracking_gates_check(dev, smi) -> int:
+    """(23b) tests/test_pipeline.py's distortion, mask, rim and blank-frame
+    gates on the card at their own sizes (240x320), through ``SLAM`` with
+    BA off and the port's own draws, every assertion enforced (each held
+    on the CPU on the port's own draws, tests/test_torch_gates.py).
+    Returns the describe launches."""
+    from kbslam_torch import config
+    from kbslam_torch.eval import trajectory
+    from kbslam_torch.io import synthetic
+    from kbslam_torch.ops import describe as describe_ops
+    from kbslam_torch.slam import SLAM
+
+    cfg = _cfg240(config)
+    launches = 0
+
+    def run(seq, masks=None, **kw):
+        nonlocal launches
+        describe_ops.reset_launches()
+        slam = SLAM(cfg, seq.K, ba_mode="disabled", device=dev,
+                    use_mask=masks is not None, **kw)
+        track(slam, seq, masks)
+        est = np.stack(slam.frame_poses)
+        if describe_ops.launches != len(seq.rgb):
+            raise AssertionError(f"{describe_ops.launches} describe launches "
+                                 f"in {len(seq.rgb)} frames")
+        launches += describe_ops.launches
+        return (trajectory.ate_rmse(est[:, :3, 3], seq.poses[:, :3, 3]),
+                slam.diagnostics)
+
+    t0 = time.perf_counter()
+    seq_d = distorted_sequence(synthetic.render_sequence(
+        num_frames=20, height=240, width=320))
+    ate_d, diags_d = run(seq_d, dist=DIST)
+    ate_no, _ = run(seq_d)                     # coefficients ignored
+    fails = sum(not d["success"] for d in diags_d[1:])
+    if not (fails <= 3 and ate_d < 0.040 and ate_d < 0.6 * ate_no):
+        raise AssertionError(f"distorted rendering: {fails} failed, ATE "
+                             f"{ate_d} m, ignored {ate_no} m")
+
+    seq_m = synthetic.render_sequence(num_frames=20, height=240, width=320,
+                                      moving_box=True)
+    ate_on, diags_m = run(seq_m, masks=seq_m.mask)
+    ate_off, _ = run(seq_m, masks=np.full_like(seq_m.mask, 255))
+    tracked = all(d["success"] for d in diags_m[1:])
+    if not (tracked and ate_on < 0.06 and ate_on < ate_off
+            and ate_off > 2.0 * ate_on):
+        raise AssertionError(f"mask gate: all tracked {tracked}, ATE on "
+                             f"{ate_on} m, off {ate_off} m")
+
+    rim = rim_gate_check(dev)
+
+    # blank frames hold the keyframe counter (tests/test_pipeline.py:113)
+    seq4 = synthetic.render_sequence(num_frames=4, height=240, width=320)
+    slam = SLAM(cfg, seq4.K, ba_mode="disabled", use_mask=False, device=dev)
+    blank = (np.zeros((240, 320, 3), np.uint8), np.zeros((240, 320), np.uint16))
+    counters, matches = [], []
+    for rgb, depth in ([(seq4.rgb[0], seq4.depth[0]),
+                        (seq4.rgb[1], seq4.depth[1])] + [blank] * 3
+                       + [(seq4.rgb[2], seq4.depth[2])]):
+        describe_ops.reset_launches()
+        d = slam.process(rgb, depth)
+        launches += describe_ops.launches
+        counters.append(int(slam.state.frames_since_kf))
+        matches.append(d["num_matches"])
+    base = counters[1]
+    if not (matches[1] >= 4 and all(n < 4 for n in matches[2:5])
+            and counters[4] == base and counters[5] in (0, base + 1)):
+        raise AssertionError(f"blank frames: counters {counters}, matches "
+                             f"{matches}")
+    print(f"[gates] tests/test_pipeline.py's gates at 240x320, own draws: "
+          f"distorted rendering (k1 0.22, k2 -0.4) {fails} failed frames, "
+          f"ATE {ate_d * 1e3:.2f} mm with the coefficients, "
+          f"{ate_no * 1e3:.2f} mm without (ratio {ate_d / ate_no:.3f}, "
+          f"bounds 40 mm and 0.6); static mask: all tracked, ATE on "
+          f"{ate_on * 1e3:.2f} mm, off {ate_off * 1e3:.2f} mm (ratio "
+          f"{ate_off / ate_on:.2f}, bounds 60 mm and 2); rim gate {rim}; "
+          f"blank frames: counters {counters}, matches {matches}; every "
+          f"gate enforced; describe launches {launches} (one per frame); "
+          f"{time.perf_counter() - t0:.1f} s; {smi}", flush=True)
+    return launches
+
+
+def full_system_640_check(dev, smi) -> int:
+    """(23c) tests/test_parity_vs_opencv.py:106-120's sequence through
+    ``SLAM`` at ``SLAMConfig()`` with BA after each keyframe: refined ATE
+    under 8 mm and keyframe ATE within the CPU oracle's + 1 mm, enforced;
+    the bound against the oracle itself stays in the CPU test. Returns the
+    describe launches."""
+    import importlib.util
+
+    from kbslam_torch import config
+    from kbslam_torch.eval import trajectory
+    from kbslam_torch.io import synthetic
+    from kbslam_torch.ops import describe as describe_ops
+    from kbslam_torch.slam import SLAM
+
+    seq = synthetic.render_sequence(num_frames=30, height=480, width=640,
+                                    fx=525.0, seed=0)
+    describe_ops.reset_launches()
+    t0 = time.perf_counter()
+    slam = track(SLAM(config.SLAMConfig(), seq.K, use_mask=False,
+                      device=dev), seq)
+    wall = time.perf_counter() - t0
+    launches = describe_ops.launches
+    gt = seq.poses[:, :3, 3]
+    ate = trajectory.ate_rmse(np.stack(slam.frame_poses)[:, :3, 3], gt)
+    refined = trajectory.ate_rmse(slam.refined_trajectory()[:, :3, 3], gt)
+    kf_frames = [d["frame"] for d in slam.diagnostics if d["added_kf"]]
+    kf = trajectory.ate_rmse(slam.keyframe_positions(),
+                             seq.poses[kf_frames][:, :3, 3])
+    oracle, oracle_kf = ORACLE_640_M
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    if not (launches == 30 and np.isfinite(refined) and refined < 8e-3
+            and kf <= oracle_kf + 1e-3):
+        raise AssertionError(f"640x480 full system: refined {refined} m, "
+                             f"keyframes {kf} m, {launches} describe launches")
+    print(f"[gates] 640x480 full system (tests/test_parity_vs_opencv.py:106, "
+          f"30 frames, SLAMConfig(), BA on keyframe, own draws): refined ATE "
+          f"{refined * 1e3:.2f} mm (online {ate * 1e3:.2f}), keyframe ATE "
+          f"{kf * 1e3:.2f} mm over {len(kf_frames)} keyframes, "
+          f"{len(slam.ba_stats)} solves; bounds refined < 8 mm and keyframes "
+          f"<= {oracle_kf * 1e3:.2f} + 1 mm enforced; the CPU oracle's "
+          f"{oracle * 1e3:.2f} mm refined for reference only (cv2 "
+          f"importable here: {has_cv2}); "
+          f"{wall:.1f} s; describe launches {launches}; {smi}", flush=True)
+    return launches
+
+
+def gates_phase(dev, smi, window_slam) -> int:
+    """(23) the dense reference solver on the card and the reference's
+    last tracking gates; returns the describe launches."""
+    t0 = time.perf_counter()
+    dense_solver_check(dev, smi, window_slam)
+    launches = tracking_gates_check(dev, smi)
+    launches += full_system_640_check(dev, smi)
+    print(f"[gates] phase 23 took {time.perf_counter() - t0:.1f} s; describe "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def gates_alone(dev, smi, name) -> int:
+    """``--only gates``: phase 23 on phase 6's window, after phases 1-2."""
+    from kbslam_torch.io import synthetic
+
+    seq = synthetic.render_sequence(num_frames=FRAMES, height=480, width=640)
+    gates_phase(dev, smi, ba_window(dev, seq)[0])
+    assert_no_jax()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def distributed_alone(dev, smi, name) -> int:
     """``--only distributed``: phase 22 after the phases it is held to
     (phase 5's sequence, 7, 18 and 19; phase 19 without phase 10's pace),
@@ -3476,8 +3873,8 @@ def distributed_alone(dev, smi, name) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "distributed"]):
-        print("usage: python3 chip_smoke.py [--only distributed]",
+    if argv not in ([], ["--only", "distributed"], ["--only", "gates"]):
+        print("usage: python3 chip_smoke.py [--only distributed|gates]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3508,6 +3905,8 @@ def main(argv=None) -> int:
             if "registers" in ln or "Compiling entry" in ln]
     print(f"[build] {built.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(cached={built.cached}) {' | '.join(regs)}", flush=True)
+    if argv == ["--only", "gates"]:
+        return gates_alone(dev, smi, name)
     if argv:
         return distributed_alone(dev, smi, name)
 
@@ -3649,7 +4048,7 @@ def main(argv=None) -> int:
     # 6. one local BA at full width, on the card and on the CPU
     slice_launches = dict(launches)
     slice_poses = np.stack(slam.frame_poses[:FRAMES])
-    ba_phase(dev, seq, smi)
+    window_slam = ba_phase(dev, seq, smi)
 
     # 7. the default path: a local BA after each keyframe insertion
     describe_ops.reset_launches()
@@ -3719,6 +4118,9 @@ def main(argv=None) -> int:
     # 22. the multi-device paths, one NCCL rank per card
     launches["describe_keypoints"] += distributed_phase(
         dev, smi, slam, seq, gba_refs, stream_refs)
+
+    # 23. the dense reference solver; the reference's last tracking gates
+    launches["describe_keypoints"] += gates_phase(dev, smi, window_slam)
 
     assert_no_jax()
 

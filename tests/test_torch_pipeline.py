@@ -198,7 +198,8 @@ def test_port_imports_no_jax():
     code = ("import sys, os, kbslam_torch, kbslam_torch.pipeline, "
             "kbslam_torch.cli, kbslam_torch.slam, kbslam_torch.convert, "
             "kbslam_torch.profile_step, kbslam_torch.ops.describe, "
-            "kbslam_torch.ba.local_ba, kbslam_torch.ba.merge, "
+            "kbslam_torch.ba.local_ba, kbslam_torch.ba.lm, "
+            "kbslam_torch.ba.merge, "
             "kbslam_torch.streaming, kbslam_torch.io.checkpoint, "
             "kbslam_torch.io.tum, kbslam_torch.io.native_loader, "
             "kbslam_torch.loop.pose_graph, kbslam_torch.loop.closure, "
