@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA GPU:
 and ``python3 chip_smoke.py --only distributed`` runs phase 22 after
 only the phases it is held to (1, 2, phase 5's sequence, 7, 18 and 19),
 for a machine with several cards; ``--only gates`` runs phase 23 after
-phases 1 and 2, on phase 6's window.
+phases 1 and 2, on phase 6's window; ``--only shell`` runs phases 5 and
+7 after phases 1 and 2.
 
 Phases (each prints one line or more; any failure raises and exits
 non-zero):
@@ -29,9 +30,17 @@ non-zero):
                 replaces (patch kernel + plain angle and bit stages);
   5. slice    — the tracking step (SLAM with local BA off) over a 60-frame
                 640x480 synthetic RGB-D sequence at the default
-                configuration; every frame launches the describe kernel
-                once and the patch kernel never, tracks with >= 50
-                inliers, and the trajectory error stays under 5 cm;
+                configuration, each frame one replay of the captured
+                tracking step (whose profiled replay runs the describe
+                kernel once; the patch kernel never runs); every frame
+                tracks with >= 50 inliers, the trajectory error stays
+                under 5 cm, the trajectory, diagnostics and map are
+                bit-equal to tests/test_torch_slam_graph.py's drive of
+                the eager functions over the same frames, and one more
+                frame makes one host sync; prints the median ms per
+                ``process`` call graphed and eager, graph launches per
+                frame, capture seconds, a replay's kernels and peak
+                device memory;
   6. ba       — one local BA at full width (window 5, 4096 compact
                 observations and landmarks, 65,536 landmarks) on the map
                 of that sequence at its fifth keyframe, against the same
@@ -45,12 +54,18 @@ non-zero):
                 it fails the phase; prints device ms, kernel launches and
                 host ms per solve;
   7. slam_ba  — the system's default path, SLAM with ``ba_mode=
-                "on_keyframe"``, over the same 60 frames: the describe
-                kernel once per frame, one solve per keyframe insertion,
-                no solve raises its cost by more than 0.1%, every frame
+                "on_keyframe"``, over the same 60 frames, the tracking
+                step and each solve a replayed graph: one tracking replay
+                per frame, one solve replay per keyframe insertion, no
+                solve raises its cost by more than 0.1%, every frame
                 tracks with >= 50 inliers, ATE under 5 cm and the refined
-                trajectory's within 1 mm of it or better; prints the
-                median ms of frames with and without a solve;
+                trajectory's within 1 mm of it or better; the
+                trajectory, diagnostics, ``ba_stats`` and final map
+                bit-equal to the same shell with its programs called
+                eagerly (``eager_slam``); prints the median ms of
+                frames with and without a solve, graphed and eager, host
+                syncs and graph launches per frame, capture seconds and
+                peak device memory;
   8. async    — the same 60 frames with ``ba_mode="async"`` (a captured
                 solve replayed on a side stream, merged after an event
                 poll), then ``finish()``: at least one merge, ATE under
@@ -252,11 +267,13 @@ line. The describe kernel's launch count sums phases 5, 7 and 10, the
 relocalization attempts of phase 14, phase 16's dense SLAM run, phase
 17's atlas SLAM run, phase 19's runs, phase 21's runs (its chunked
 CLI runs add their replays x 8), phase 22's ranks and phase 23's runs.
-In phases 10, 19 and 22 the wrapper's counter counts the eager calls
-(the warm-up before the capture and the tail; a call inside the capture
-launches nothing and is not counted), and the graph's replays, which no Python runs, add the
-stream's replay count times the kernel's launches in one replay, counted
-by torch.profiler.
+The wrapper's counter counts the eager calls (each capture's warm-up,
+and in phases 10, 19 and 22 the chunk's tail; a call inside a capture
+launches nothing and is not counted), and the graphs' replays, which
+no Python runs, add their replay counts times the kernel's launches in
+one replay, counted by torch.profiler: one per replay of a SLAM
+shell's tracking or relocalization graph (``describe_launches``),
+eight per chunk replay.
 
 Times: device time per call, from CUDA events around the replay of a
 CUDA graph of 20 calls (so a wrapper's host time is not counted), and
@@ -388,6 +405,44 @@ def bound(nbytes: float, flops: float = 0.0):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def reset_launch_counts() -> None:
+    """Zero the describe wrapper's count and the shells' graph counts."""
+    from kbslam_torch import device
+    from kbslam_torch.ops import describe as describe_ops
+
+    describe_ops.reset_launches()
+    device.reset_counts()
+
+
+def describe_launches() -> int:
+    """Describe kernels launched since ``reset_launch_counts``: the
+    wrapper's eager calls (each capture's warm-up among them) and one per
+    replay of a SLAM shell's tracking or relocalization graph (a replay
+    runs the kernel once: phase 5 profiles one; a call inside a capture
+    launches nothing)."""
+    from kbslam_torch import device
+    from kbslam_torch.ops import describe as describe_ops
+
+    return (describe_ops.launches + device.replays["track"]
+            + device.replays["reloc"])
+
+
+def check_shell_launches(what, frames) -> int:
+    """The per-frame shell's launch gate since ``reset_launch_counts``:
+    one replay of the tracking graph per frame, and eager describe calls
+    only in the captures' warm-ups. Returns ``describe_launches()``."""
+    from kbslam_torch import device
+    from kbslam_torch.ops import describe as describe_ops
+
+    warm = device.captures["track"] + device.captures["reloc"]
+    if device.replays["track"] != frames or describe_ops.launches != warm:
+        raise AssertionError(
+            f"{what}: {device.replays['track']} tracking replays for "
+            f"{frames} frames, {describe_ops.launches} eager describe calls "
+            f"for {warm} captures")
+    return describe_launches()
+
+
 def describe_check(got, ref):
     """The describe gates; returns the counts it printed and the angle
     error. Raises when a gate fails."""
@@ -494,6 +549,244 @@ def _gap(ta, qa, tb, qb):
 def _pose_gap(a, b):
     """_gap between the keyframe poses of two maps."""
     return _gap(a.kf_t, a.kf_q, b.kf_t, b.kf_q)
+
+
+def eager_slam(*args, **kwargs):
+    """A SLAM shell whose programs run eagerly on the card: the yardstick
+    of its CUDA graphs (tests/test_torch_slam_graph.py holds the eager
+    programs against a drive of the eager functions on the CPU)."""
+    from kbslam_torch.slam import SLAM
+
+    class EagerSLAM(SLAM):
+        def _program(self, name, fn):
+            return fn
+
+    return EagerSLAM(*args, **kwargs)
+
+
+_SAME_DIAG = ("frame", "success", "added_kf", "ran_ba", "inlier_ratio",
+              "num_matches", "num_inliers", "num_features")
+
+
+def same_run(got, ref) -> None:
+    """Raise unless two shells' runs are bit-equal: frame poses,
+    diagnostics, solve records (but their wall times), events, final
+    state and dense model."""
+    from kbslam_torch.device import tensor_leaves
+
+    def diag(s):
+        return [{k: d[k] for k in _SAME_DIAG} for d in s.diagnostics]
+
+    def stats(s):
+        return [{k: v for k, v in r.items() if k != "wall_ms"}
+                for r in s.ba_stats]
+
+    bad = [k for k, f in (
+        ("poses", lambda s: np.stack(s.frame_poses).tobytes()),
+        ("diagnostics", diag), ("ba_stats", stats),
+        ("reloc_events", lambda s: s.reloc_events),
+        ("loop_events", lambda s: s.loop_events),
+        ("icp_events", lambda s: s.icp_events)) if f(got) != f(ref)]
+    a = list(tensor_leaves((got.state, got.tsdf, got.atlas)))
+    b = list(tensor_leaves((ref.state, ref.tsdf, ref.atlas)))
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        bad.append("state or dense model")
+    if bad:
+        raise AssertionError(f"graphed shell != eager shell: {bad}")
+
+
+def _reset_peak() -> int:
+    """Reset the peak-memory count; returns the bytes allocated now, the
+    base that a peak is read above."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def timed_track(slam, seq):
+    """``slam`` over ``seq``: host ms of each ``process`` call (upload
+    included; each ends in the output copy, so the frame is done)."""
+    walls = []
+    for i in range(len(seq.rgb)):
+        t = time.perf_counter()
+        slam.process(seq.rgb[i], seq.depth[i])
+        walls.append((time.perf_counter() - t) * 1e3)
+    return walls
+
+
+def _track_replay_profile(slam):
+    """torch.profiler over one more replay of ``slam``'s tracking graph
+    (on its last frame): (kernel nodes, kernel ms, describe kernels)."""
+    (g,) = slam.graphs["track"].graphs.values()
+    _, n, ms, n_desc, _, _ = _replay_profile(g.graph)
+    return n, ms, n_desc
+
+
+def _shell_figures(slam, frames):
+    """Graph launches per frame, capture seconds per program and the
+    programs' replays, from the shell's ``graphs``."""
+    g = slam.graphs
+    return (sum(x.replays for x in g.values()) / frames,
+            {k: [round(c, 2) for c in x.capture_s] for k, x in g.items()},
+            {k: x.replays for k, x in g.items()})
+
+
+def slice_phase(dev, seq, smi):
+    """(5) The tracking slice: SLAM with local BA off over the 60 frames,
+    each frame one replay of the captured tracking step, held to the
+    tracking gates and bit-equal to the eager shell (``eager_slam``) over
+    the same frames, timed against it. Returns (the shell, the kernels' launch counts)."""
+    from kbslam_torch import config
+    from kbslam_torch.eval import trajectory
+    from kbslam_torch.ops import patches as patch_ops
+    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.slam import SLAM
+
+    cfg = config.SLAMConfig()
+    base = _reset_peak()
+    reset_launch_counts()
+    patch_ops.reset_launches()
+    slam = SLAM(cfg, seq.K, ba_mode="disabled", device=dev)
+    t0 = time.perf_counter()
+    walls = timed_track(slam, seq)
+    total = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = {"describe_keypoints": check_shell_launches("slice", FRAMES),
+                "extract_patches": patch_ops.launches}
+    if launches["extract_patches"]:
+        raise AssertionError(f"kernel launches in {FRAMES} frames: {launches}")
+    diags = slam.diagnostics
+    bad = [d["frame"] for d in diags[1:]
+           if not d["success"] or d["num_inliers"] < MIN_INLIERS]
+    if bad:
+        raise AssertionError(f"tracking failed or < {MIN_INLIERS} inliers "
+                             f"on frames {bad}")
+    est = np.stack(slam.frame_poses)
+    ate = trajectory.ate_rmse(est[:, :3, 3], seq.poses[:, :3, 3])
+    if not np.isfinite(est).all() or not ate < MAX_ATE_M:
+        raise AssertionError(f"ATE {ate} m (bound {MAX_ATE_M})")
+    per_frame, capture_s, _ = _shell_figures(slam, FRAMES)
+    base = _reset_peak()
+    ref = eager_slam(cfg, seq.K, ba_mode="disabled", device=dev)
+    eager_walls = timed_track(ref, seq)
+    eager_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    same_run(slam, ref)
+    # one more frame (the last again) with every host sync counted: the
+    # upload goes through pinned buffers, so only the output copy waits
+    sites = sync_sites(lambda: slam.process(seq.rgb[-1], seq.depth[-1]))
+    if sum(sites.values()) != 1:
+        raise AssertionError(f"host syncs in one SLAM.process: {sites}")
+    nodes, kernel_ms, n_desc = _track_replay_profile(slam)
+    if n_desc != 1:
+        raise AssertionError(f"{n_desc} describe kernels in a replay of the "
+                             "tracking graph")
+    steady, eager = np.asarray(walls[1:]), np.asarray(eager_walls[1:])
+    print(f"[slice] {FRAMES} frames 640x480, BA off, each frame one replay "
+          f"of the captured tracking step: {slam.num_keyframes} keyframes, "
+          f"min inliers {min(d['num_inliers'] for d in diags[1:])}, ATE "
+          f"{ate * 1e3:.2f} mm; trajectory, diagnostics and map bit-equal to "
+          f"the eager shell's; launches {launches} (the eager shell's "
+          f"aside); {FRAMES / total:.2f} FPS over all frames; median "
+          f"ms per process call after the first: graphed "
+          f"{np.median(steady):.2f} (first {walls[0]:.1f} ms, the capture), "
+          f"eager {np.median(eager):.2f}; graph launches per frame "
+          f"{per_frame:.2f}; capture s {capture_s}; host syncs in one "
+          f"process: 1 ({dict(sites)}, the output copy); a replay of the "
+          f"tracking graph: {nodes} kernel nodes, {kernel_ms:.2f} ms of "
+          f"kernel time, {n_desc} describe kernel (torch.profiler); peak "
+          f"device memory above what was allocated before the run: graphed "
+          f"{peak:.3f} GB, eager {eager_peak:.3f} GB; "
+          f"{smi}", flush=True)
+    return slam, launches
+
+
+def default_path_phase(dev, seq, smi):
+    """(7) The system's default path, SLAM with a local BA after each
+    keyframe over the 60 frames, every program a replayed graph, against
+    the eager shell (``eager_slam``): trajectory, diagnostics, ``ba_stats`` and the final
+    map bit-equal. Returns (the shell, ATE, refined ATE, median ms of a
+    frame without a solve, the kernels' launch counts)."""
+    from kbslam_torch import config
+    from kbslam_torch.ops import patches as patch_ops
+    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.slam import SLAM
+
+    cfg = config.SLAMConfig()
+    base = _reset_peak()
+    reset_launch_counts()
+    patch_ops.reset_launches()
+    slam = SLAM(cfg, seq.K, device=dev)
+    holder = []
+    sites = sync_sites(lambda: holder.append(timed_track(slam, seq)))
+    walls = holder[0]
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = {"describe_keypoints": check_shell_launches("default path",
+                                                           FRAMES),
+                "extract_patches": patch_ops.launches}
+    if launches["extract_patches"]:
+        raise AssertionError(f"kernel launches with BA: {launches}")
+    ate, ate_ref = check_ba_run(slam, seq)
+    per_frame, capture_s, replays = _shell_figures(slam, FRAMES)
+    if replays.get("ba") != len(slam.ba_stats):
+        raise AssertionError(f"{replays} replays for {len(slam.ba_stats)} "
+                             "solves")
+    base = _reset_peak()
+    ref = eager_slam(cfg, seq.K, device=dev)
+    eager_walls = timed_track(ref, seq)
+    eager_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    same_run(slam, ref)
+    diags = slam.diagnostics
+
+    def split(ms):
+        ba = [w for w, d in zip(ms[1:], diags[1:]) if d["ran_ba"]]
+        plain = [w for w, d in zip(ms[1:], diags[1:]) if not d["ran_ba"]]
+        return float(np.median(plain)), float(np.median(ba)), len(ba)
+
+    g_plain, g_ba, n_ba = split(walls)
+    e_plain, e_ba, _ = split(eager_walls)
+    m = slam.state.map
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    map_bytes = nbytes(m)
+    written = nbytes((m.kf_q, m.kf_t, m.mp_pos, m.kf_mp))
+    print(f"[slam_ba] {FRAMES} frames 640x480, ba_mode=on_keyframe, every "
+          f"program a replayed graph: {slam.num_keyframes} keyframes, "
+          f"{len(slam.ba_stats)} solves (iterations "
+          f"{[s['iterations'] for s in slam.ba_stats]}, pruned "
+          f"{[s['num_pruned'] for s in slam.ba_stats]}), ATE "
+          f"{ate * 1e3:.2f} mm, refined {ate_ref * 1e3:.2f} mm; trajectory, "
+          f"diagnostics, ba_stats and final map bit-equal to the eager "
+          f"shell's;"
+          f" median ms per process call after the first, without a solve: "
+          f"graphed {g_plain:.2f}, eager {e_plain:.2f}; with one ({n_ba} "
+          f"frames): graphed {g_ba:.2f}, eager {e_ba:.2f} (first frame "
+          f"{walls[0]:.1f} ms, its captures); solve host ms graphed "
+          f"{[round(s['wall_ms'], 2) for s in slam.ba_stats]}; graph "
+          f"launches per frame {per_frame:.2f} ({replays}); capture s "
+          f"{capture_s}; host syncs per frame over the run "
+          f"{sum(sites.values()) / FRAMES:.2f} ({dict(sites.most_common(4))});"
+          f" the live map {map_bytes} bytes, of which the solve writes "
+          f"{written} in place (4 tensors); peak device memory above what was allocated "
+          f"before the run: graphed {peak:.3f} GB, eager {eager_peak:.3f} "
+          f"GB; launches {launches}; {smi}",
+          flush=True)
+    return slam, ate, ate_ref, g_plain, launches
+
+
+def shell_alone(dev, smi, name) -> int:
+    """``--only shell``: phases 5 and 7 after phases 1-2."""
+    from kbslam_torch.io import synthetic
+
+    seq = synthetic.render_sequence(num_frames=FRAMES, height=480, width=640)
+    slice_phase(dev, seq, smi)
+    default_path_phase(dev, seq, smi)
+    assert_no_jax()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def ba_window(dev, seq):
@@ -1265,19 +1558,18 @@ def tail_errors(est, poses, frames):
 
 
 class _CountedReloc:
-    """Wraps a shell's relocalization step: attempts, their describe
-    launches, host ms and CUDA-event device ms."""
+    """Wraps a shell's relocalization step (eager, or the per-frame
+    shell's replayed graph): attempts, their describe launches, host ms
+    and CUDA-event device ms."""
 
     def __init__(self, fn):
-        from kbslam_torch.ops import describe as describe_ops
-
-        self.ops, self.fn, self.launches = describe_ops, fn, 0
+        self.fn, self.launches = fn, 0
         self.timed = _Timed(fn)
 
     def __call__(self, *args, **kwargs):
-        before = self.ops.launches
+        before = describe_launches()
         out = self.timed(*args, **kwargs)
-        self.launches += self.ops.launches - before
+        self.launches += describe_launches() - before
         return out
 
 
@@ -1310,21 +1602,41 @@ def reloc_phase(dev, smi) -> int:
                              f"errors on {errs[2]} off {errs[0]}")
     pf = s._reloc
     pf_host, pf_dev = pf.timed.times()
-    # one attempt on a lost frame (a copy of the final state) and its
-    # read, with every host sync counted: only the read may wait
+    # one attempt on a lost frame and its read, with every host sync
+    # counted: only the read may wait; eagerly on a copy of the final
+    # state, then replayed on the shell's live state
+    from kbslam_torch.loop.reloc import make_reloc_step, reloc_record
     from kbslam_torch.profile_step import sync_sites
     from kbslam_torch.slam import reloc_to_host
     from kbslam_torch.streaming import clone_state
 
+    lc = s.config.loop
+    step = make_reloc_step(s.config, s.intr, use_mask=False,
+                           word_bits=lc.word_bits,
+                           score_min=lc.reloc_score_min,
+                           min_inliers=lc.reloc_min_inliers)
     frame = [torch.from_numpy(a).to(dev) for a in (rgb[27], dep[27].astype(
         np.int32))]
-    pf.fn(clone_state(s.state), *frame)          # warm: per-device tables
-    reloc_sites = sync_sites(lambda: reloc_to_host(pf.fn(
+    step(clone_state(s.state), *frame)          # warm: per-device tables
+    reloc_sites = sync_sites(lambda: reloc_to_host(step(
         clone_state(s.state), *frame, exclude_from_id=s._tracked_kf)[1],
         s.state.map))
     if sum(reloc_sites.values()) != 1 or not all(
             k.startswith("/slam.py") for k in reloc_sites):
         raise AssertionError(f"host syncs of one attempt: {reloc_sites}")
+    live = s._upload(rgb[27], dep[27], None)
+    exclude = s._load("reloc_exclude", s._tracked_kf, torch.int32)
+    replay_sites = sync_sites(lambda: reloc_record(pf.fn(
+        s.state, *live, exclude).cpu().numpy()))
+    if sum(replay_sites.values()) != 1:
+        raise AssertionError(f"host syncs of one replayed attempt: "
+                             f"{replay_sites}")
+    # describe_launches counts one kernel per replay of the reloc graph
+    (g,) = pf.fn.graphs.values()
+    _, reloc_nodes, reloc_kernel_ms, reloc_desc, _, _ = _replay_profile(g.graph)
+    if reloc_desc != 1:
+        raise AssertionError(f"{reloc_desc} describe kernels in a replay of "
+                             "the reloc graph")
 
     seq, rgb, dep, poses = lost_and_found(11)
     cfg = lost_config(2)
@@ -1354,7 +1666,11 @@ def reloc_phase(dev, smi) -> int:
           f"{ev}, tail error max {errs[2].max() * 1e3:.2f} mm (off "
           f"{errs[0].max() * 1e3:.1f} mm), {len(pf_host)} attempts host ms "
           f"{pf_host} device ms {pf_dev}, describe launches {pf.launches}, "
-          f"host syncs of one attempt and its read {dict(reloc_sites)}; "
+          f"host syncs of one attempt and its read {dict(reloc_sites)}, of "
+          f"one replayed attempt and its read {sum(replay_sites.values())}; "
+          f"a replay of the reloc graph: {reloc_nodes} kernel nodes, "
+          f"{reloc_kernel_ms:.2f} ms of kernel time, {reloc_desc} describe "
+          f"kernel (torch.profiler); "
           f"chunked (chunk 4, {cs.replays} replays) {cev}, tail from frame "
           f"{recover_by} all tracked, error max {cerr.max() * 1e3:.2f} mm, "
           f"{len(ch_host)} attempts host ms {ch_host} device ms {ch_dev}, "
@@ -1492,7 +1808,6 @@ def dense_phase(dev, seq, smi, pace) -> int:
     import tempfile
 
     from kbslam_torch import config, convert
-    from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.geom.camera import Intrinsics
     from kbslam_torch.io.checkpoint import load_checkpoint_tsdf, save_checkpoint
     from kbslam_torch.mapping import dense, mesh, raycast
@@ -1601,12 +1916,9 @@ def dense_phase(dev, seq, smi, pace) -> int:
           flush=True)
 
     # 3. the shell: BA after each keyframe, fusion on keyframes
-    describe_ops.reset_launches()
+    reset_launch_counts()
     slam = track(SLAM(cfg, seq.K, device=dev), seq)
-    dense_launches = describe_ops.launches
-    if dense_launches != FRAMES:
-        raise AssertionError(f"describe launches in dense SLAM: "
-                             f"{dense_launches}")
+    dense_launches = check_shell_launches("dense SLAM", FRAMES)
     pts, _ = slam.dense_surface()
     T0 = seq.poses[0]
     err = np.abs((pts @ T0[:3, :3].T + T0[:3, 3])[:, 2])
@@ -1791,7 +2103,6 @@ def submap_phase(dev, seq, smi, pace) -> int:
     from kbslam_torch.io.checkpoint import (load_checkpoint_atlas,
                                             save_checkpoint)
     from kbslam_torch.mapping import dense, icp, submap
-    from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.pipeline import init_state
     from kbslam_torch.slam import SLAM
     from kbslam_torch.streaming import ChunkedStream
@@ -1938,16 +2249,16 @@ def submap_phase(dev, seq, smi, pace) -> int:
 
     # 3. SLAM with the atlas and BA on keyframe (the main path of this
     # phase: the describe kernel once per frame)
-    describe_ops.reset_launches()
+    reset_launch_counts()
     slam = track(SLAM(cfg, seq.K, device=dev), seq)
-    sub_launches = describe_ops.launches
+    sub_launches = check_shell_launches("atlas SLAM", FRAMES)
     n_ins = sum(d["added_kf"] for d in slam.diagnostics)
     pts, _ = slam.dense_surface()
     T0 = seq.poses[0]
     err = np.abs((pts @ T0[:3, :3].T + T0[:3, 3])[:, 2])
     mc = slam.map_consistency()
     m = slam.dense_mesh()
-    if not (sub_launches == FRAMES and slam.atlas.count == (n_ins + 1) // 2
+    if not (slam.atlas.count == (n_ins + 1) // 2
             and len(pts) > 1000 and np.median(err) < 0.02 and mc is not None
             and mc["coverage"] > 0.3 and mc["median_err_m"] < dcfg.voxel_size
             and len(m.faces) > 0):
@@ -1979,9 +2290,26 @@ def submap_phase(dev, seq, smi, pace) -> int:
             calls.append(1)
         return run
 
+    def checked_shell(fn, calls):
+        # a fusion that captures a graph (the first start and the first
+        # fuse) may sync in torch's capture entry; nothing else may
+        from kbslam_torch import device
+        from kbslam_torch.profile_step import sync_sites
+
+        def run(*args):
+            before = sum(device.captures.values())
+            sites = sync_sites(lambda: fn(*args))
+            if sum(device.captures.values()) > before:
+                sites = {k: n for k, n in sites.items()
+                         if "torch/cuda/graphs.py" not in k}
+            if sum(sites.values()):
+                raise AssertionError(f"host syncs in a fusion: {sites}")
+            calls.append(1)
+        return run
+
     per_frame = SLAM(cfg, seq.K, ba_mode="disabled", device=dev)
     pf_fusions = []
-    per_frame._fuse = checked(per_frame._fuse, pf_fusions)
+    per_frame._fuse = checked_shell(per_frame._fuse, pf_fusions)
     track(per_frame, seq)
     del per_frame._fuse
     cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK)
@@ -2678,7 +3006,6 @@ def io_cli_per_frame(dev, smi, traj_dir):
     """(21a) The CLI per frame at 640x480 with BA and the dense volume,
     viewer on against off; returns the describe launches."""
     from kbslam_torch.mapping import raycast
-    from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.profile_step import sync_sites
     from kbslam_torch.slam import SLAM
     from kbslam_torch.viz import rerun_viewer
@@ -2700,11 +3027,11 @@ def io_cli_per_frame(dev, smi, traj_dir):
         with contextlib.ExitStack() as stack:
             for c in [made_ctx, _patched(SLAM, "process", wrap), *view_ctx]:
                 stack.enter_context(c)
-            describe_ops.reset_launches()
+            reset_launch_counts()
             sites = sync_sites(lambda: summary.append(_cli(
                 [*CLI_FRAMES, "--ba", "on", "--dense",
                  "--save-trajectory", traj, *extra])))
-            launches += describe_ops.launches
+            launches += check_shell_launches("CLI per frame", FRAMES)
         slam = made[0]
         # a frame's whole iteration: process, the viewer, the log line
         it_ms = np.diff(starts) * 1e3
@@ -2883,11 +3210,10 @@ def io_wire_and_trace(dev, seq, smi, slice_poses, traj_dir):
     frames. Returns the describe launches."""
     from kbslam_torch import config
     from kbslam_torch.io.zmq_camera import _pack, _unpack
-    from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.slam import SLAM
     from kbslam_torch.utils.profiling import TRACE_FILE, device_trace
 
-    describe_ops.reset_launches()
+    reset_launch_counts()
     slam = SLAM(config.SLAMConfig(), seq.K, ba_mode="disabled", device=dev)
     wire_bytes = 0
     for i in range(FRAMES):
@@ -2900,7 +3226,7 @@ def io_wire_and_trace(dev, seq, smi, slice_poses, traj_dir):
                 raise AssertionError(f"wire codec changed frame {i}")
             frame.append(b)
         slam.process(frame[0], frame[1])
-    launches = describe_ops.launches
+    launches = check_shell_launches("wire codec", FRAMES)
     got = np.stack(slam.frame_poses)
     if not np.array_equal(got, slice_poses):
         raise AssertionError("trajectory through the wire codec != phase 5's")
@@ -2930,10 +3256,10 @@ def io_wire_and_trace(dev, seq, smi, slice_poses, traj_dir):
             ref = f.read()
         for wire in wires:
             a = os.path.join(traj_dir, f"loopback_{wire}.txt")
-            describe_ops.reset_launches()
+            reset_launch_counts()
             s = _loopback(zip(cseq.rgb, cseq.depth), cseq.K, a,
                           ["--ba", "off", *CLI_FRAMES[2:]], wire)
-            launches += describe_ops.launches
+            launches += check_shell_launches(f"zmq loopback ({wire})", n)
             with open(a) as f:
                 if s["frames"] != n or f.read() != ref:
                     raise AssertionError(f"zmq loopback ({wire}) != the "
@@ -2944,14 +3270,14 @@ def io_wire_and_trace(dev, seq, smi, slice_poses, traj_dir):
               f"frames 640x480 to the end marker, trajectory equal to the "
               f"synthetic source's; {smi}", flush=True)
 
-    # 21d: a torch.profiler trace of 4 eager frames
-    describe_ops.reset_launches()
+    # 21d: a torch.profiler trace of 4 frames (graph replays)
+    reset_launch_counts()
     slam = SLAM(config.SLAMConfig(), seq.K, ba_mode="disabled", device=dev)
-    slam.process(seq.rgb[0], seq.depth[0])      # warm-up, outside the trace
+    slam.process(seq.rgb[0], seq.depth[0])      # capture, outside the trace
     with device_trace(device=dev) as log_dir:
         for i in range(1, 5):
             slam.process(seq.rgb[i], seq.depth[i])
-    launches += describe_ops.launches
+    launches += check_shell_launches("device_trace", 5)
     path = os.path.join(log_dir, TRACE_FILE)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -2962,7 +3288,7 @@ def io_wire_and_trace(dev, seq, smi, slice_poses, traj_dir):
     if len(desc) != 4:
         raise AssertionError(f"trace of 4 frames: {len(desc)} describe "
                              f"kernels among {len(kernels)}")
-    print(f"[io] device_trace around 4 eager frames: {TRACE_FILE} "
+    print(f"[io] device_trace around 4 frames (graph replays): {TRACE_FILE} "
           f"({size} bytes, {len(events)} events, {len(kernels)} kernels, "
           f"{len(desc)} describe kernels, "
           f"{sum(e.get('dur', 0) for e in desc) / 4:.2f} us each); {smi}",
@@ -2987,16 +3313,15 @@ def e2e_gates_phase(dev, smi):
     from kbslam_torch import config
     from kbslam_torch.eval import trajectory
     from kbslam_torch.io import synthetic
-    from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.slam import SLAM
 
     launches = 0
     seq = synthetic.render_sequence(num_frames=40, height=240, width=320)
     for mode in ("disabled", "on_keyframe"):
-        describe_ops.reset_launches()
+        reset_launch_counts()
         s = track(SLAM(_cfg240(config), seq.K, ba_mode=mode, use_mask=False,
                        device=dev), seq)
-        launches += describe_ops.launches
+        launches += check_shell_launches("test_slam_end_to_end", 40)
         succ = sum(d["success"] for d in s.diagnostics)
         ate = trajectory.ate_rmse(np.stack(s.frame_poses)[:, :3, 3],
                                   seq.poses[:, :3, 3])
@@ -3027,10 +3352,10 @@ def e2e_gates_phase(dev, smi):
     gt = seq.poses[:, :3, 3]
     ate, t0 = {}, time.perf_counter()
     for mode in ("disabled", "on_keyframe"):
-        describe_ops.reset_launches()
+        reset_launch_counts()
         s = track(SLAM(cfg, seq.K, ba_mode=mode, use_mask=False, device=dev),
                   seq)
-        launches += describe_ops.launches
+        launches += check_shell_launches("rotation sweep", N)
         ate[mode] = trajectory.ate_rmse(np.stack(s.frame_poses)[:, :3, 3], gt)
     wall = time.perf_counter() - t0
     succ = sum(d["success"] for d in s.diagnostics)
@@ -3706,7 +4031,6 @@ def tracking_gates_check(dev, smi) -> int:
     from kbslam_torch import config
     from kbslam_torch.eval import trajectory
     from kbslam_torch.io import synthetic
-    from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.slam import SLAM
 
     cfg = _cfg240(config)
@@ -3714,15 +4038,12 @@ def tracking_gates_check(dev, smi) -> int:
 
     def run(seq, masks=None, **kw):
         nonlocal launches
-        describe_ops.reset_launches()
+        reset_launch_counts()
         slam = SLAM(cfg, seq.K, ba_mode="disabled", device=dev,
                     use_mask=masks is not None, **kw)
         track(slam, seq, masks)
         est = np.stack(slam.frame_poses)
-        if describe_ops.launches != len(seq.rgb):
-            raise AssertionError(f"{describe_ops.launches} describe launches "
-                                 f"in {len(seq.rgb)} frames")
-        launches += describe_ops.launches
+        launches += check_shell_launches("tracking gates", len(seq.rgb))
         return (trajectory.ate_rmse(est[:, :3, 3], seq.poses[:, :3, 3]),
                 slam.diagnostics)
 
@@ -3756,9 +4077,9 @@ def tracking_gates_check(dev, smi) -> int:
     for rgb, depth in ([(seq4.rgb[0], seq4.depth[0]),
                         (seq4.rgb[1], seq4.depth[1])] + [blank] * 3
                        + [(seq4.rgb[2], seq4.depth[2])]):
-        describe_ops.reset_launches()
+        reset_launch_counts()
         d = slam.process(rgb, depth)
-        launches += describe_ops.launches
+        launches += check_shell_launches("blank frames", 1)
         counters.append(int(slam.state.frames_since_kf))
         matches.append(d["num_matches"])
     base = counters[1]
@@ -3790,17 +4111,16 @@ def full_system_640_check(dev, smi) -> int:
     from kbslam_torch import config
     from kbslam_torch.eval import trajectory
     from kbslam_torch.io import synthetic
-    from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.slam import SLAM
 
     seq = synthetic.render_sequence(num_frames=30, height=480, width=640,
                                     fx=525.0, seed=0)
-    describe_ops.reset_launches()
+    reset_launch_counts()
     t0 = time.perf_counter()
     slam = track(SLAM(config.SLAMConfig(), seq.K, use_mask=False,
                       device=dev), seq)
     wall = time.perf_counter() - t0
-    launches = describe_ops.launches
+    launches = check_shell_launches("640x480 full system", 30)
     gt = seq.poses[:, :3, 3]
     ate = trajectory.ate_rmse(np.stack(slam.frame_poses)[:, :3, 3], gt)
     refined = trajectory.ate_rmse(slam.refined_trajectory()[:, :3, 3], gt)
@@ -3809,7 +4129,7 @@ def full_system_640_check(dev, smi) -> int:
                              seq.poses[kf_frames][:, :3, 3])
     oracle, oracle_kf = ORACLE_640_M
     has_cv2 = importlib.util.find_spec("cv2") is not None
-    if not (launches == 30 and np.isfinite(refined) and refined < 8e-3
+    if not (np.isfinite(refined) and refined < 8e-3
             and kf <= oracle_kf + 1e-3):
         raise AssertionError(f"640x480 full system: refined {refined} m, "
                              f"keyframes {kf} m, {launches} describe launches")
@@ -3873,23 +4193,20 @@ def distributed_alone(dev, smi, name) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "distributed"], ["--only", "gates"]):
-        print("usage: python3 chip_smoke.py [--only distributed|gates]",
+    if argv not in ([], ["--only", "distributed"], ["--only", "gates"],
+                    ["--only", "shell"]):
+        print("usage: python3 chip_smoke.py [--only distributed|gates|shell]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from kbslam_torch import config
     from kbslam_torch.device import pick_device
-    from kbslam_torch.eval import trajectory
     from kbslam_torch.frontend import brief
     from kbslam_torch.io import synthetic
     from kbslam_torch.ops import _build
     from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.ops import patches as patch_ops
-    from kbslam_torch.profile_step import sync_sites
-    from kbslam_torch.slam import SLAM
 
     # 1. device
     dev = pick_device()
@@ -3907,6 +4224,8 @@ def main(argv=None) -> int:
           f"(cached={built.cached}) {' | '.join(regs)}", flush=True)
     if argv == ["--only", "gates"]:
         return gates_alone(dev, smi, name)
+    if argv == ["--only", "shell"]:
+        return shell_alone(dev, smi, name)
     if argv:
         return distributed_alone(dev, smi, name)
 
@@ -4003,77 +4322,15 @@ def main(argv=None) -> int:
           f"bound {d_bound * 1e3:.2f} us by {d_by}, kernel at "
           f"{d_bound / d_ms:.1%} of it", flush=True)
 
-    # 5. the tracking slice at the default configuration
+    # 5-7. the tracking slice, one full-width solve, the default path
     seq = synthetic.render_sequence(num_frames=FRAMES, height=480, width=640)
-    slam = SLAM(config.SLAMConfig(), seq.K, ba_mode="disabled", device=dev)
-    torch.cuda.synchronize()
-    patch_ops.reset_launches()
-    describe_ops.reset_launches()
-    t0 = time.perf_counter()
-    walls = []
-    for i in range(FRAMES):
-        t1 = time.perf_counter()
-        slam.process(seq.rgb[i], seq.depth[i])
-        walls.append(time.perf_counter() - t1)
-    total = time.perf_counter() - t0
-    launches = {"describe_keypoints": describe_ops.launches,
-                "extract_patches": patch_ops.launches}
-    if launches != {"describe_keypoints": FRAMES, "extract_patches": 0}:
-        raise AssertionError(f"kernel launches in {FRAMES} frames: {launches}")
-    diags = slam.diagnostics
-    bad = [d["frame"] for d in diags[1:]
-           if not d["success"] or d["num_inliers"] < MIN_INLIERS]
-    if bad:
-        raise AssertionError(f"tracking failed or < {MIN_INLIERS} inliers "
-                             f"on frames {bad}")
-    est = np.stack(slam.frame_poses)
-    ate = trajectory.ate_rmse(est[:, :3, 3], seq.poses[:, :3, 3])
-    if not np.isfinite(est).all() or not ate < MAX_ATE_M:
-        raise AssertionError(f"ATE {ate} m (bound {MAX_ATE_M})")
-    steady = np.asarray(walls[1:]) * 1e3
-    print(f"[slice] {FRAMES} frames 640x480, {slam.num_keyframes} keyframes, "
-          f"min inliers {min(d['num_inliers'] for d in diags[1:])}, "
-          f"ATE {ate * 1e3:.2f} mm, launches {launches}; "
-          f"{FRAMES / total:.2f} FPS over all frames, median "
-          f"{np.median(steady):.2f} ms/frame after the first "
-          f"(first {walls[0] * 1e3:.1f} ms); {smi}", flush=True)
-    # one more frame (the last again) with every host sync counted: the
-    # upload goes through pinned buffers, so only the output copy waits
-    sites = sync_sites(lambda: slam.process(seq.rgb[-1], seq.depth[-1]))
-    if sum(sites.values()) != 1:
-        raise AssertionError(f"host syncs in one SLAM.process: {sites}")
-    print(f"[slice] host syncs in one SLAM.process: 1 ({dict(sites)}, the "
-          f"output copy)", flush=True)
-
-    # 6. one local BA at full width, on the card and on the CPU
-    slice_launches = dict(launches)
-    slice_poses = np.stack(slam.frame_poses[:FRAMES])
+    slam5, launches = slice_phase(dev, seq, smi)
+    slice_poses = np.stack(slam5.frame_poses[:FRAMES])
+    del slam5
     window_slam = ba_phase(dev, seq, smi)
-
-    # 7. the default path: a local BA after each keyframe insertion
-    describe_ops.reset_launches()
-    patch_ops.reset_launches()
-    slam = track(SLAM(config.SLAMConfig(), seq.K, device=dev), seq)
-    launches_ba = {"describe_keypoints": describe_ops.launches,
-                   "extract_patches": patch_ops.launches}
-    if launches_ba != {"describe_keypoints": FRAMES, "extract_patches": 0}:
-        raise AssertionError(f"kernel launches with BA: {launches_ba}")
-    ate, ate_ref = check_ba_run(slam, seq)
-    diags = slam.diagnostics
-    with_ba = [d["wall_ms"] for d in diags[1:] if d["ran_ba"]]
-    without = [d["wall_ms"] for d in diags[1:] if not d["ran_ba"]]
-    print(f"[slam_ba] {FRAMES} frames 640x480, ba_mode=on_keyframe: "
-          f"{slam.num_keyframes} keyframes, {len(slam.ba_stats)} solves "
-          f"(iterations {[s['iterations'] for s in slam.ba_stats]}, "
-          f"pruned {[s['num_pruned'] for s in slam.ba_stats]}, solve ms "
-          f"{[round(s['wall_ms'], 1) for s in slam.ba_stats]}), ATE "
-          f"{ate * 1e3:.2f} mm, refined {ate_ref * 1e3:.2f} mm, min inliers "
-          f"{min(d['num_inliers'] for d in diags[1:])}; median ms/frame "
-          f"without a solve {np.median(without):.2f} ({len(without)} frames), "
-          f"with one {np.median(with_ba):.2f} ({len(with_ba)} frames, after "
-          f"the first); launches {launches_ba}; {smi}", flush=True)
-    launches = {k: slice_launches[k] + launches_ba[k] for k in launches}
-    phase7_ms = float(np.median(without))
+    slam, ate, ate_ref, phase7_ms, launches_ba = default_path_phase(
+        dev, seq, smi)
+    launches = {k: launches[k] + launches_ba[k] for k in launches}
 
     # 8. asynchronous BA on a side stream
     async_phase(dev, seq, smi)

@@ -20,7 +20,7 @@ from kbslam_torch.ba.compact import compact_problem
 from kbslam_torch.ba.compact_lm import solve_window_compact
 from kbslam_torch.ba.merge import merge_ba_result
 from kbslam_torch.ba.problem import build_problem
-from kbslam_torch.device import CapturedCall
+from kbslam_torch.device import CapturedCall, assign_state
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.mapping.state import MapState, device_copy, scatter_rows
 
@@ -90,9 +90,16 @@ def local_ba(state: MapState, intr: Intrinsics,
                           kf_mp=kf_mp), stats
 
 
-def make_local_ba(cfg, intr: Intrinsics):
-    """``map -> (new map, BAStats)`` with the configuration bound."""
-    return lambda m: local_ba(m, intr, cfg)
+def make_local_ba_into(cfg, intr: Intrinsics):
+    """``map -> stats_vector``: the solve written into the map's own
+    tensors (``device.assign_state``: four of them, the poses, the
+    landmark positions and references), as the per-frame shell replays
+    it on its live map."""
+    def solve_into(m):
+        new, stats = local_ba(m, intr, cfg)
+        assign_state(m, new)
+        return stats_vector(stats)
+    return solve_into
 
 
 class GraphedLocalBA:

@@ -12,8 +12,10 @@ torch counterpart is to keep TF32 off for matmuls and for cuDNN.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
+import time
 from typing import Optional, Union
 
 import numpy as np
@@ -48,9 +50,18 @@ def upload(array, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def upload_into(dst: torch.Tensor, array) -> torch.Tensor:
+    """Copy the host ``array`` into the device tensor ``dst`` in place
+    (``upload``'s pinned, asynchronous copy on CUDA); returns ``dst``."""
+    t = torch.from_numpy(np.array(array)).to(dst.dtype).reshape(dst.shape)
+    if dst.is_cuda:
+        t = t.pin_memory()
+    return dst.copy_(t, non_blocking=dst.is_cuda)
+
+
 @contextlib.contextmanager
 def graph_capture(graph: "torch.cuda.CUDAGraph",
-                  stream: Optional["torch.cuda.Stream"] = None):
+                  stream: Optional["torch.cuda.Stream"] = None, pool=None):
     """``torch.cuda.graph(graph, stream=stream)`` with Python's garbage
     collector run before the capture and switched off during it. A dead
     reference cycle that holds another CUDA graph would otherwise be
@@ -59,12 +70,13 @@ def graph_capture(graph: "torch.cuda.CUDAGraph",
     capture fails. ``stream`` (default: torch's one capture stream) also
     picks the cuBLAS workspace the graph bakes in, which torch keeps per
     stream: graphs that replay at the same time need streams of their
-    own."""
+    own. ``pool`` is a memory pool shared with other graphs (see
+    ``LiveGraphs``)."""
     gc.collect()
     was_enabled = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
             yield
     finally:
         if was_enabled:
@@ -88,19 +100,29 @@ class CapturedCall:
     stream, replays the graph and returns ``fn``'s outputs, which live in
     the graph's memory until the next call: read or copy them first. The
     capture follows a warm-up on a side stream (library handles, caches);
-    ``fn`` must make no host sync, and a capture that fails raises."""
+    ``fn`` must make no host sync, and a capture that fails raises.
 
-    def __init__(self, fn, *args):
-        self.inputs = _clone(args)
+    With ``live=True`` the graph reads and writes the tensors of ``args``
+    themselves, which must then stay where they are between calls (the
+    port's counterpart of the reference's donated arguments); the
+    warm-up runs on copies, so they are untouched until the first call,
+    and a call takes no arguments. ``stream`` is the stream of the
+    warm-up and the capture (default: a new one for the warm-up and
+    torch's capture stream), ``pool`` a memory pool shared with other
+    graphs."""
+
+    def __init__(self, fn, *args, live: bool = False, stream=None,
+                 pool=None):
+        self.inputs = args if live else _clone(args)
         dev = next(tensor_leaves(args)).device
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = stream if stream is not None else torch.cuda.Stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            fn(*self.inputs)
+            fn(*(_clone(args) if live else self.inputs))
         cur.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with graph_capture(self.graph):
+        with graph_capture(self.graph, stream=stream, pool=pool):
             self.outputs = fn(*self.inputs)
 
     def load(self, *args):
@@ -112,6 +134,82 @@ class CapturedCall:
         self.load(*args)
         self.graph.replay()
         return self.outputs
+
+
+# replays and captures of every named LiveGraphs in the process, by name
+replays: collections.Counter = collections.Counter()
+captures: collections.Counter = collections.Counter()
+
+
+def reset_counts() -> None:
+    replays.clear()
+    captures.clear()
+
+
+class LiveGraphs:
+    """``fn(*args)`` on CUDA as one CUDA graph per set of argument tensors,
+    captured on those tensors at their first call (``CapturedCall`` with
+    ``live=True``) and replayed on the current stream after: the port's
+    counterpart of a jitted program with donated arguments. ``fn`` writes
+    its results into its argument tensors in place (``assign_state``)
+    and may return more tensors, which live in the graph's memory until
+    its next replay.
+
+    A set of tensors is told apart by their addresses, shapes, strides
+    and dtypes; whatever else ``fn`` reads on the host is baked into the
+    graph at its capture, so what changes from call to call is loaded
+    into a static device tensor first (a ring slot, an id). Every graph
+    is captured on ``stream`` (the cuBLAS workspace a graph bakes in is
+    its capture stream's, so graphs that may replay beside another
+    program's need a stream of their own) and in ``pool``: graphs that
+    never replay at the same time, whose outputs are read before another
+    replays, may share one. A CPU tensor raises ``ValueError``: the
+    caller runs ``fn`` itself there. A capture that fails raises.
+
+    ``replays`` counts the replays, ``capture_s`` holds each capture's
+    host seconds (warm-up and capture); with a ``name``, the module's
+    ``replays`` and ``captures`` count them too, by that name."""
+
+    def __init__(self, fn, stream=None, pool=None, name=None):
+        self.fn, self.stream, self.pool, self.name = fn, stream, pool, name
+        self.graphs: dict = {}
+        self.replays = 0
+        self.capture_s: list = []
+
+    def __call__(self, *args):
+        leaves = list(tensor_leaves(args))
+        if not all(t.is_cuda for t in leaves):
+            raise ValueError("LiveGraphs replays on CUDA tensors only")
+        k = tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                  for t in leaves)
+        g = self.graphs.get(k)
+        if g is None:
+            t0 = time.perf_counter()
+            g = self.graphs[k] = CapturedCall(self.fn, *args, live=True,
+                                              stream=self.stream,
+                                              pool=self.pool)
+            self.capture_s.append(time.perf_counter() - t0)
+            captures[self.name] += 1
+        g.graph.replay()
+        self.replays += 1
+        replays[self.name] += 1
+        return g.outputs
+
+
+def assign_state(dst, src):
+    """Copy ``src`` into ``dst``'s tensors, in place, for two states (or
+    maps, or any two tuples of tensors) of one layout; a field that is
+    already the same tensor is skipped. Raises ``ValueError`` where a
+    shape or dtype differs. Returns ``dst``."""
+    pairs = list(zip(tensor_leaves(dst), tensor_leaves(src)))
+    for d, s in pairs:
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"assign_state: {tuple(s.shape)} {s.dtype} into "
+                             f"{tuple(d.shape)} {d.dtype}")
+    for d, s in pairs:
+        if d.data_ptr() != s.data_ptr() or d.stride() != s.stride():
+            d.copy_(s)
+    return dst
 
 
 def _clone(tree):

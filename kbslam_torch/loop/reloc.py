@@ -23,15 +23,19 @@ inlier ratio), at the held, wrong pose; place recognition then finds
 that keyframe, at worst the probed frame itself with a score of 1, and
 re-anchors the camera at the wrong pose. ``exclude_from_id`` masks the
 keyframes with ids from it on out of place recognition; the shells pass
-the insertion count of their last tracked frame. ``None`` (the
-default) keeps the reference's behaviour.
+the insertion count of their last tracked frame, as a host int or as a
+0-d int32 device tensor (the per-frame shell loads it into a static
+scalar before each replay of its graph). ``None`` (the default) keeps
+the reference's behaviour.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from kbslam_torch.device import assign_state
 from kbslam_torch.geom.camera import Intrinsics, unproject
 from kbslam_torch.geom.se3 import SE3
 from kbslam_torch.loop.detect import (kf_signatures, normalized_histogram,
@@ -126,8 +130,8 @@ def make_reloc_step(cfg, intr: Intrinsics, use_mask: bool = True, *,
                     min_inliers: int = 40, seed: int = 0,
                     sampler_for_frame=None):
     """``step(state, rgb, depth, mask=None, exclude_from_id=None) ->
-    (state, RelocResult)``; ``exclude_from_id`` is an int (see the
-    module docstring).
+    (state, RelocResult)``; ``exclude_from_id`` is an int or a 0-d int32
+    tensor on the state's device (see the module docstring).
 
     The minimal sets come from ``hash_sampler(seed, frame_count +
     FRAME_OFFSET)`` on the device; ``sampler_for_frame(frame_count)``
@@ -138,7 +142,8 @@ def make_reloc_step(cfg, intr: Intrinsics, use_mask: bool = True, *,
             sampler = sampler_for_frame(int(state.frame_count))
         else:
             sampler = hash_sampler(seed, state.frame_count + FRAME_OFFSET)
-        if exclude_from_id is not None:     # a fill, not a host copy
+        if exclude_from_id is not None and not torch.is_tensor(
+                exclude_from_id):           # a fill, not a host copy
             exclude_from_id = torch.full((), exclude_from_id,
                                          dtype=torch.int32,
                                          device=state.frame_count.device)
@@ -147,3 +152,39 @@ def make_reloc_step(cfg, intr: Intrinsics, use_mask: bool = True, *,
                           score_min=score_min, min_inliers=min_inliers,
                           exclude_from_id=exclude_from_id)
     return step
+
+
+def make_reloc_step_into(cfg, intr: Intrinsics, use_mask: bool = True,
+                         **kwargs):
+    """``step(state, rgb, depth, mask=None, exclude_from_id=None) ->
+    reloc_vector``: ``make_reloc_step``'s attempt (the same keyword
+    options) with its new state written into ``state``'s tensors, as the
+    per-frame shell replays it on its live state."""
+    step = make_reloc_step(cfg, intr, use_mask, **kwargs)
+
+    def step_into(state, rgb, depth, mask=None, exclude_from_id=None):
+        new, r = step(state, rgb, depth, mask, exclude_from_id)
+        assign_state(state, new)
+        return reloc_vector(r, state.map)
+    return step_into
+
+
+def reloc_vector(r: RelocResult, m) -> torch.Tensor:
+    """An attempt's result and the map after it as one float64 vector on
+    the device (one copy to the host; ``reloc_record`` reads it):
+    success, the matched keyframe's id, score, inliers, the map's
+    insertion count and the recovered pose."""
+    slot = r.slot.reshape(1).to(torch.int64)
+    return torch.cat([torch.stack([
+        r.success.to(torch.float64),
+        m.kf_id.index_select(0, slot)[0].to(torch.float64),
+        r.score.to(torch.float64), r.num_inliers.to(torch.float64),
+        m.num_kf.to(torch.float64)]),
+        r.pose_q.to(torch.float64), r.pose_t.to(torch.float64)])
+
+
+def reloc_record(v: np.ndarray) -> dict:
+    """The host record of a ``reloc_vector``."""
+    return dict(success=bool(v[0]), matched_id=int(v[1]), score=float(v[2]),
+                inliers=int(v[3]), num_kf=int(v[4]), pose_q=v[5:9],
+                pose_t=v[9:12])

@@ -21,12 +21,16 @@ corrected:
   loop corrections reach the dense model as world = anchor_now @ local.
 
 ``count`` is a host int, not a device scalar as in the reference: the
-shells know how many submaps they opened, and a slot chosen by a 0-d
-device tensor would cost a host sync. So neither opening nor fusing
-reads the device, and a fusion can run between the replays of the chunk
-graph. ``live_slots``, ``anchor_poses_now``, ``recent_slots_with_poses``,
-``atlas_mesh`` and ``extract_atlas_surface`` are host-side, off the hot
-path, and read the device freely.
+shells know how many submaps they opened, and a count on the device
+would cost a host sync wherever the host needs it. Opening and fusing
+index the ring on the device (``index_select``/``index_copy_``) at the
+slot the count picks, or at a slot the caller loaded into a device
+tensor, so neither reads the device, a fusion can run between the
+replays of the chunk graph, and the per-frame shell captures one graph
+for each that opens or fuses any slot. ``live_slots``,
+``anchor_poses_now``, ``recent_slots_with_poses``, ``atlas_mesh`` and
+``extract_atlas_surface`` are host-side, off the hot path, and read the
+device freely.
 """
 from __future__ import annotations
 
@@ -77,22 +81,39 @@ def empty_atlas(cfg: DenseMapConfig, num_submaps: int,
         count=0)
 
 
-def start_submap(atlas: SubmapAtlas, q, t, kf_id: int) -> SubmapAtlas:
+def slot_index(atlas: SubmapAtlas, slot) -> torch.Tensor:
+    """A ring slot (a host int, or a 0-d or [1] integer tensor on the
+    atlas's device) as a [1] int64 index on the atlas's device."""
+    if torch.is_tensor(slot):
+        return slot.reshape(1).to(torch.int64)
+    return torch.full((1,), int(slot), dtype=torch.int64,
+                      device=atlas.tsdf.device)
+
+
+def start_submap(atlas: SubmapAtlas, q, t, kf_id: int,
+                 slot=None) -> SubmapAtlas:
     """Open a new submap anchored at camera-to-world (q, t), the pose of
-    the keyframe with global id ``kf_id`` (a host int); the oldest slot
-    is overwritten when the ring is full."""
-    slot = atlas.count % atlas.capacity
-    atlas.tsdf[slot].fill_(1.0)
-    atlas.weight[slot].fill_(0.0)
-    atlas.anchor_q[slot].copy_(q)
-    atlas.anchor_t[slot].copy_(t)
-    atlas.anchor_kf_id[slot].fill_(int(kf_id))
+    the keyframe with global id ``kf_id`` (a host int, or a 0-d int32
+    tensor on the atlas's device); the oldest slot is overwritten when
+    the ring is full. ``slot`` (default: the next, from the host count)
+    may be a device tensor: the per-frame shell loads it before each
+    replay of its graph, which then opens any slot."""
+    idx = slot_index(atlas, atlas.count % atlas.capacity
+                      if slot is None else slot)
+    atlas.tsdf.index_fill_(0, idx, 1.0)
+    atlas.weight.index_fill_(0, idx, 0.0)
+    atlas.anchor_q.index_copy_(0, idx, q.reshape(1, 4))
+    atlas.anchor_t.index_copy_(0, idx, t.reshape(1, 3))
+    if torch.is_tensor(kf_id):
+        atlas.anchor_kf_id.index_copy_(0, idx, kf_id.reshape(1))
+    else:
+        atlas.anchor_kf_id.index_fill_(0, idx, int(kf_id))
     return atlas._replace(count=atlas.count + 1)
 
 
 def integrate_active(atlas: SubmapAtlas, depth_m, q, t, intr: Intrinsics,
                      cfg: DenseMapConfig, anchor_q=None,
-                     anchor_t=None) -> SubmapAtlas:
+                     anchor_t=None, slot=None) -> SubmapAtlas:
     """Fuse one metric depth image taken at world pose (q, t) into the
     active submap, in that submap's anchor-camera frame.
 
@@ -103,32 +124,38 @@ def integrate_active(atlas: SubmapAtlas, depth_m, q, t, intr: Intrinsics,
     correction into the chunk, and extraction (which re-poses by the
     current anchor pose) would apply it twice. The pose used is stored
     back as the slot's anchor, so extraction's fallback stays consistent
-    with the newest content. Defaults to the stored anchor pose."""
-    slot = atlas.active_slot()
+    with the newest content. Defaults to the stored anchor pose.
+    ``slot``: the active slot, from the host count by default, or a
+    device tensor as in ``start_submap``."""
+    idx = slot_index(atlas, atlas.active_slot() if slot is None else slot)
     if anchor_q is None:
-        anchor_q, anchor_t = atlas.anchor_q[slot], atlas.anchor_t[slot]
+        anchor_q = atlas.anchor_q.index_select(0, idx)[0]
+        anchor_t = atlas.anchor_t.index_select(0, idx)[0]
     anchor = SE3(anchor_q, anchor_t)
     local = anchor.inverse() @ SE3(q, t)
-    sub = integrate(TSDFState(atlas.tsdf[slot], atlas.weight[slot]),
+    sub = integrate(TSDFState(atlas.tsdf.index_select(0, idx)[0],
+                              atlas.weight.index_select(0, idx)[0]),
                     depth_m, local, intr, cfg)
-    atlas.tsdf[slot].copy_(sub.tsdf)
-    atlas.weight[slot].copy_(sub.weight)
-    atlas.anchor_q[slot].copy_(anchor.q)
-    atlas.anchor_t[slot].copy_(anchor.t)
+    atlas.tsdf.index_copy_(0, idx, sub.tsdf[None])
+    atlas.weight.index_copy_(0, idx, sub.weight[None])
+    # a copy: the caller's anchor pose may be a view of that very row
+    atlas.anchor_q.index_copy_(0, idx, anchor.q.reshape(1, 4).clone())
+    atlas.anchor_t.index_copy_(0, idx, anchor.t.reshape(1, 3).clone())
     return atlas
 
 
 @functools.lru_cache(maxsize=8)
 def make_submap_ops(cfg: DenseMapConfig, intr: Intrinsics, num_submaps: int,
                     depth_scale: float = 1.0):
-    """``(start, fuse)``: ``start(atlas, q, t, kf_id)`` and ``fuse(atlas,
-    depth_raw, q, t, anchor_q, anchor_t)``, where the caller passes the
-    anchor's current ring pose (see ``integrate_active``) and
-    ``depth_scale`` turns the raw image into metres."""
-    def fuse(atlas, depth_raw, q, t, anchor_q, anchor_t):
+    """``(start, fuse)``: ``start(atlas, q, t, kf_id, slot=None)`` and
+    ``fuse(atlas, depth_raw, q, t, anchor_q, anchor_t, slot=None)``,
+    where the caller passes the anchor's current ring pose (see
+    ``integrate_active``) and ``depth_scale`` turns the raw image into
+    metres."""
+    def fuse(atlas, depth_raw, q, t, anchor_q, anchor_t, slot=None):
         return integrate_active(atlas, depth_raw.to(torch.float32)
                                 * depth_scale, q, t, intr, cfg, anchor_q,
-                                anchor_t)
+                                anchor_t, slot)
     return start_submap, fuse
 
 

@@ -14,6 +14,13 @@ With ``defer_insert=True`` the step leaves the map alone and returns
 what the insertion needs (``PendingInsert``); ``apply_pending`` inserts
 it later. The multistream scan (``parallel/multistream.py``) applies
 each stream's pending insertion once per block of frames.
+
+The shells keep one live state and write each step's result into its
+tensors (``track_step_into``, through ``device.assign_state``), the
+counterpart of the reference's donated state: on CUDA the per-frame
+shell replays it as one CUDA graph (``device.LiveGraphs``) on that state
+and on static frame buffers, and ``output_rows`` packs its outputs into
+the one row the host reads per frame.
 """
 from __future__ import annotations
 
@@ -22,12 +29,14 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from kbslam_torch.device import assign_state
 from kbslam_torch.frontend import orb
 from kbslam_torch.geom.camera import Intrinsics, depth_at, project, unproject
 from kbslam_torch.geom.se3 import SE3
 from kbslam_torch.mapping import policy as kf_policy
 from kbslam_torch.mapping.state import (MapState, create_map_points,
-                                        empty_map, insert_keyframe, take_row)
+                                        device_copy, empty_map,
+                                        insert_keyframe, take_row)
 from kbslam_torch.matching.hamming import MatchResult, knn2_ratio_match
 from kbslam_torch.ops.incidence import incidence_gather
 from kbslam_torch.pnp.ransac import Sampler, hash_sampler, ransac_pnp
@@ -60,6 +69,34 @@ class TrackOutput(NamedTuple):
     anchor_id: torch.Tensor     # int (-1 = no keyframe yet)
     anchor_q: torch.Tensor      # [4]
     anchor_t: torch.Tensor      # [3]
+
+
+_OUTPUT_FIELDS = ("pose_q", "pose_t", "success", "added_kf", "inlier_ratio",
+                  "num_matches", "num_inliers", "num_features", "anchor_id",
+                  "anchor_q", "anchor_t")
+_FIELD_WIDTH = {f: 4 if f.endswith("_q") else 3 if f.endswith("_t") else 1
+                for f in _OUTPUT_FIELDS}
+OUTPUT_WIDTH = sum(_FIELD_WIDTH.values())    # a row of output_rows
+
+
+def output_rows(out) -> torch.Tensor:
+    """TrackOutputs stacked over a leading frame axis [n, ...] -> one
+    [n, OUTPUT_WIDTH] float64 tensor on their device, a row per frame
+    (the integers are small and exact in float64)."""
+    n = out.pose_q.shape[0]
+    return torch.cat([getattr(out, f).reshape(n, -1).to(torch.float64)
+                      for f in _OUTPUT_FIELDS], dim=1)
+
+
+def row_to_fields(row) -> dict:
+    """One row of ``output_rows``, read back on the host, as a dict of
+    the TrackOutput fields (vectors as arrays, scalars as floats)."""
+    res, i = {}, 0
+    for f in _OUTPUT_FIELDS:
+        n = _FIELD_WIDTH[f]
+        res[f] = row[i:i + n] if n > 1 else row[i]
+        i += n
+    return res
 
 
 class PendingInsert(NamedTuple):
@@ -113,6 +150,12 @@ def apply_pending(m: MapState, p: PendingInsert, intr: Intrinsics
                        is_match=p.fuse_ok)
     return create_map_points(m, fuse, intr.fx, intr.fy, intr.cx, intr.cy,
                              do=p.do & ~p.fresh)
+
+
+def clone_state(state: TrackState) -> TrackState:
+    """A state whose every tensor is a fresh copy."""
+    return TrackState(device_copy(state.map),
+                      *(t.clone() for t in state[1:]))
 
 
 def init_state(cfg, device) -> TrackState:
@@ -299,3 +342,12 @@ def make_track_step(cfg, intr: Intrinsics, use_mask: bool = True,
         return track_step(state, rgb, depth, mask if use_mask else None,
                           intr, cfg, sampler)
     return step
+
+
+def track_step_into(step, state, rgb, depth, mask=None) -> torch.Tensor:
+    """``step`` (``make_track_step``'s) on ``state``, with the new state
+    written into ``state``'s tensors and the outputs packed into one
+    [1, OUTPUT_WIDTH] float64 row (``output_rows``)."""
+    new, out = step(state, rgb, depth, mask)
+    assign_state(state, new)
+    return output_rows(TrackOutput(*(f[None] for f in out)))

@@ -7,14 +7,18 @@ Tracks a synthetic sequence at the default configuration four ways
 (with ``--ba on`` as the system's default path, a local BA after each
 keyframe insertion; off by default, the tracking step alone):
 
-1. plain: wall time per frame (the step ends in a device-to-host copy
-   of its outputs, so each frame is complete when its time is taken);
-2. staged: the stages of the step wrapped with a device synchronize at
+1. plain: wall time per frame of ``SLAM.process``, which replays its
+   programs as CUDA graphs (the step ends in a device-to-host copy of
+   its outputs, so each frame is complete when its time is taken);
+2. staged: the same frames through the eager calls of the step (and
+   the solve), with the stages wrapped with a device synchronize at
    each edge, giving each stage's wall time (nested stages are listed
-   under their parent; the syncs add a little time of their own);
+   under their parent; the syncs add a little time of their own, and
+   no sync can sit inside a graph capture);
 3. profiled: ``torch.profiler`` over the plain step, for the device's
-   kernel time per frame, the number of kernel launches per frame and
-   the device's busy share of the wall time;
+   kernel time per frame, the number of kernel launches per frame (the
+   kernels of a graph replay included) and the device's busy share of
+   the wall time;
 4. host syncs: the operations that wait for the device in one frame
    (``torch.cuda.set_sync_debug_mode``); the output copy is one.
 
@@ -172,6 +176,33 @@ def _ba_stage(slam, walls):
     }
 
 
+def _eager_run(cfg, seq, dev, frames, ba):
+    """Wall ms per frame of the per-frame path as eager calls: the
+    tracking step, and with ``ba`` a local BA after each keyframe
+    insertion, each frame ending in its one output copy."""
+    from kbslam_torch.ba import local_ba as ba_module
+    from kbslam_torch.geom.camera import Intrinsics
+    from kbslam_torch.pipeline import init_state, make_track_step
+    from kbslam_torch.slam import output_to_host
+
+    intr = Intrinsics.from_matrix(seq.K)
+    step = make_track_step(cfg, intr)
+    state = init_state(cfg, dev)
+    ones = torch.ones(seq.depth.shape[1:], dtype=torch.uint8, device=dev)
+    walls = []
+    for i in range(frames):
+        t0 = time.perf_counter()
+        rgb = torch.from_numpy(seq.rgb[i]).to(dev)
+        depth = torch.from_numpy(seq.depth[i].astype(np.int32)).to(dev)
+        state, out = step(state, rgb, depth, ones)
+        if output_to_host(out)["added_kf"] and ba:
+            m, stats = ba_module.local_ba(state.map, intr, cfg.ba)
+            state = state._replace(map=m)
+            ba_module.stats_vector(stats).cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser("kbslam_torch.profile_step")
     ap.add_argument("--frames", type=int, default=40)
@@ -221,7 +252,7 @@ def main(argv=None):
     for m, a, name in hooks:
         setattr(m, a, _timed(table, name, getattr(m, a)))
     try:
-        staged = run(new_slam())
+        staged = _eager_run(cfg, seq, dev, args.frames, args.ba == "on")
     finally:
         for m, a, fn in saved:
             setattr(m, a, fn)

@@ -32,6 +32,28 @@ last, so a new solve sees the corrected map.
 with the guarded global bundle adjustment of ``ba/global_ba.py``, at the
 end of a run (the CLI's ``--global-ba``).
 
+On CUDA every program the reference jits runs as a CUDA graph
+(``device.LiveGraphs``): the tracking step (``pipeline.
+track_step_into``), the cull, the local BA after a keyframe, the
+relocalization attempt, the fusion of a keyframe (the volume's
+``integrate``, the atlas's submap start and fuse) and the dense ICP
+solve, each captured at its first call for its tensors, after a
+warm-up on copies, and replayed after. The shell keeps one live state
+(and one volume or atlas) and every program writes into its tensors
+in place, as does every other map change (a merge, a loop correction,
+a global BA, a new ``state``): the counterpart of the reference's
+donated state, so ``state`` is overwritten by the next ``process``
+(``pipeline.clone_state`` keeps a copy). The frame goes into static
+device buffers through pinned host buffers, the relocalization's
+exclusion id, an atlas keyframe's id and the atlas slot to open or fuse
+into device scalars, and the poses that fusion and ICP start from into
+static device vectors, so a replay copies nothing outside its graph.
+The graphs share one memory pool (each one's outputs are read before
+another replays) and are captured on a stream of the shell's own, whose
+cuBLAS workspace no concurrent graph bakes in. A capture that fails raises; nothing falls
+back to the eager path. On the CPU (only when the caller names it) the
+same programs run eagerly on the same live tensors.
+
 With the atlas, fusion makes no host read: the anchor's id comes from a
 host count of insertions, and its current ring pose (or the stored one,
 when its ring slot was reallocated) is chosen on the device, so the
@@ -48,24 +70,20 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from kbslam_torch.ba.local_ba import (AsyncLocalBA, make_local_ba,
-                                      stats_record, stats_vector)
+from kbslam_torch.ba.local_ba import (AsyncLocalBA, make_local_ba_into,
+                                      stats_record)
 from kbslam_torch.convert import tsdf_to_numpy
-from kbslam_torch.device import pick_device, upload
+from kbslam_torch.device import (LiveGraphs, assign_state, pick_device,
+                                 upload_into)
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.geom.se3 import quat_rotate
-from kbslam_torch.loop.reloc import make_reloc_step
+from kbslam_torch.loop.reloc import (make_reloc_step_into, reloc_record,
+                                     reloc_vector)
 from kbslam_torch.loop.runner import LoopCloser
 from kbslam_torch.mapping import dense, icp, mesh, raycast, submap
 from kbslam_torch.mapping.cull import make_cull
-from kbslam_torch.pipeline import init_state, make_track_step
-
-_OUTPUT_FIELDS = ("pose_q", "pose_t", "success", "added_kf", "inlier_ratio",
-                  "num_matches", "num_inliers", "num_features", "anchor_id",
-                  "anchor_q", "anchor_t")
-_FIELD_WIDTH = {f: 4 if f.endswith("_q") else 3 if f.endswith("_t") else 1
-                for f in _OUTPUT_FIELDS}
-OUTPUT_WIDTH = sum(_FIELD_WIDTH.values())    # a row of output_rows
+from kbslam_torch.pipeline import (init_state, make_track_step, output_rows,
+                                   row_to_fields, track_step_into)
 
 
 def pose_T(q, t) -> np.ndarray:
@@ -83,26 +101,6 @@ def pose_T(q, t) -> np.ndarray:
     return T
 
 
-def output_rows(out) -> torch.Tensor:
-    """TrackOutputs stacked over a leading frame axis [n, ...] -> one
-    [n, OUTPUT_WIDTH] float64 tensor on their device, a row per frame
-    (the integers are small and exact in float64)."""
-    n = out.pose_q.shape[0]
-    return torch.cat([getattr(out, f).reshape(n, -1).to(torch.float64)
-                      for f in _OUTPUT_FIELDS], dim=1)
-
-
-def row_to_fields(row: np.ndarray) -> dict:
-    """One row of ``output_rows``, read back on the host, as a dict of
-    the TrackOutput fields (vectors as arrays, scalars as floats)."""
-    res, i = {}, 0
-    for f in _OUTPUT_FIELDS:
-        n = _FIELD_WIDTH[f]
-        res[f] = row[i:i + n] if n > 1 else row[i]
-        i += n
-    return res
-
-
 def output_to_host(out) -> dict:
     """All TrackOutput fields of one frame in ONE device-to-host copy."""
     stacked = type(out)(*(f[None] for f in out))
@@ -111,19 +109,15 @@ def output_to_host(out) -> dict:
 
 def reloc_to_host(r, m) -> dict:
     """A relocalization attempt's result (``loop.reloc.RelocResult``) and
-    the map after it, in one device-to-host copy: success, the matched
-    keyframe's id, score, inliers, the map's insertion count and the
-    recovered pose."""
-    slot = r.slot.reshape(1).to(torch.int64)
-    v = torch.cat([torch.stack([
-        r.success.to(torch.float64),
-        m.kf_id.index_select(0, slot)[0].to(torch.float64),
-        r.score.to(torch.float64), r.num_inliers.to(torch.float64),
-        m.num_kf.to(torch.float64)]),
-        r.pose_q.to(torch.float64), r.pose_t.to(torch.float64)]).cpu().numpy()
-    return dict(success=bool(v[0]), matched_id=int(v[1]), score=float(v[2]),
-                inliers=int(v[3]), num_kf=int(v[4]), pose_q=v[5:9],
-                pose_t=v[9:12])
+    the map after it, in one device-to-host copy (``loop.reloc.
+    reloc_record``)."""
+    return reloc_record(reloc_vector(r, m).cpu().numpy())
+
+
+def _icp_vector(r) -> torch.Tensor:
+    """An ``IcpResult`` as one vector: q, t, num_valid, rmse_init, rmse."""
+    return torch.cat([r.q, r.t, torch.stack([r.num_valid.to(r.q.dtype),
+                                             r.rmse_init, r.rmse])])
 
 
 def refine_frame_poses(frame_poses, frame_anchors, map_state) -> np.ndarray:
@@ -212,19 +206,22 @@ def check_dense_config(config):
             raise ValueError(f"unknown dense_icp.mode {mode!r}")
 
 
-def anchor_pose_now(atlas, map_state):
+def anchor_pose_now(atlas, map_state, slot=None):
     """(q, t) on the device of the active submap's anchor keyframe at its
     current ring pose, or the stored anchor pose when the ring slot was
     reallocated: the gauge the frame poses live in. Chosen by a device
-    ``where`` over rows picked by ``index_select``, so no host read."""
-    s = atlas.active_slot()
-    kid = atlas.anchor_kf_id[s:s + 1].to(torch.int64)        # [1]
-    slot = kid % map_state.kf_id.shape[0]
-    live = (kid >= 0) & (map_state.kf_id.index_select(0, slot) == kid)
-    return (torch.where(live, map_state.kf_q.index_select(0, slot)[0],
-                        atlas.anchor_q[s]),
-            torch.where(live, map_state.kf_t.index_select(0, slot)[0],
-                        atlas.anchor_t[s]))
+    ``where`` over rows picked by ``index_select``, so no host read.
+    ``slot``: the active atlas slot as a 0-d device tensor (default: from
+    the host count)."""
+    s = submap.slot_index(atlas, atlas.active_slot() if slot is None
+                          else slot)
+    kid = atlas.anchor_kf_id.index_select(0, s).to(torch.int64)    # [1]
+    ring = kid % map_state.kf_id.shape[0]
+    live = (kid >= 0) & (map_state.kf_id.index_select(0, ring) == kid)
+    return (torch.where(live, map_state.kf_q.index_select(0, ring)[0],
+                        atlas.anchor_q.index_select(0, s)[0]),
+            torch.where(live, map_state.kf_t.index_select(0, ring)[0],
+                        atlas.anchor_t.index_select(0, s)[0]))
 
 
 class DenseViews:
@@ -349,7 +346,11 @@ class DenseViews:
 
 
 class SLAM(DenseViews):
-    """Stateful wrapper: feed RGB-D frames, read back trajectory and map."""
+    """Stateful wrapper: feed RGB-D frames, read back trajectory and map.
+
+    ``graphs`` maps each program's name to its ``device.LiveGraphs`` on
+    CUDA (empty on the CPU): their replays, captures and capture
+    seconds."""
 
     def __init__(self, config, K: np.ndarray, ba_mode: str = "on_keyframe",
                  use_mask: bool = True, seed: int = 0, dist=None,
@@ -362,18 +363,30 @@ class SLAM(DenseViews):
         self.intr = Intrinsics.from_matrix(K, dist=dist)
         self.ba_mode = ba_mode
         self.use_mask = use_mask
+        self.graphs: dict = {}
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        # through ``_step``, which a CPU test may replace with a step that
+        # draws the reference's minimal sets (``sampler_for_frame``; a
+        # graph would replay the first frame's)
         self._step = make_track_step(config, self.intr, use_mask=use_mask,
                                      seed=seed)
-        self._ba = make_local_ba(config.ba, self.intr)
+        self._track = self._program(
+            "track", lambda *a: track_step_into(self._step, *a))
+        self._ba = (self._program("ba", make_local_ba_into(config.ba,
+                                                           self.intr))
+                    if ba_mode == "on_keyframe" else None)
         self._async = (AsyncLocalBA(config.ba, self.intr)
                        if ba_mode == "async" else None)
-        self._cull = make_cull(config.cull) if config.cull.enabled else None
+        self._cull = (self._program("cull", make_cull(config.cull))
+                      if config.cull.enabled else None)
         lc = config.loop
         self._loop = (LoopCloser(config, self.intr) if lc.enabled else None)
-        self._reloc = (make_reloc_step(
+        self._reloc = (self._program("reloc", make_reloc_step_into(
             config, self.intr, use_mask=use_mask, word_bits=lc.word_bits,
             score_min=lc.reloc_score_min, min_inliers=lc.reloc_min_inliers,
-            seed=seed) if lc.reloc_after > 0 else None)
+            seed=seed)) if lc.reloc_after > 0 else None)
         self._fail_streak = 0
         # keyframes from this id on were inserted while tracking failed
         # (at held poses): relocalization does not match them
@@ -383,8 +396,8 @@ class SLAM(DenseViews):
             self._loop.events if self._loop is not None else [])
         self.reloc_events: List[dict] = []
         self._state = init_state(config, self.device)
-        self._ones_mask = None
-        self._pinned = None   # ([(shape, dtype)], pinned host buffers)
+        self._frame_bufs: dict = {}  # (name, shape, dtype) -> (host, device)
+        self._statics: dict = {}  # (name, shape, dtype) -> device tensor
         self._frame = 0
         self.trajectory: List[np.ndarray] = []   # poses of successes
         self.frame_poses: List[np.ndarray] = []  # per input frame
@@ -395,94 +408,139 @@ class SLAM(DenseViews):
         self._image_hw = (config.image_height, config.image_width)
         self._depth_scale = config.map.depth_scale
         self._last_kf_view = None   # (q, t, host depth, global kf id)
-        self.tsdf = self._integrate = self.atlas = None
+        self.tsdf = self.atlas = None
         self._kf_insertions = 0     # keyframe frames fused into the atlas
         self._num_kf = 0            # the map's insertions, counted here
         d, scale = config.dense, config.map.depth_scale
         if d.enabled and d.submap_every > 0:
             self.atlas = submap.empty_atlas(d, d.max_submaps, self.device)
-            self._submap_start, self._submap_fuse = submap.make_submap_ops(
-                d, self.intr, d.max_submaps, scale)
+            start, fuse = submap.make_submap_ops(d, self.intr, d.max_submaps,
+                                                 scale)
+
+            # the ring slot is a device scalar the caller loads
+            def start_at(atlas, slot, q, t, kf_id):
+                start(atlas, q, t, kf_id, slot=slot)
+
+            def fuse_at(atlas, slot, ring, depth_raw, q, t):
+                fuse(atlas, depth_raw, q, t,
+                     *anchor_pose_now(atlas, ring, slot), slot=slot)
+
+            self._submap_start = self._program("submap_start", start_at)
+            self._submap_fuse = self._program("submap_fuse", fuse_at)
         elif d.enabled:
             self.tsdf = dense.empty_tsdf(d, self.device)
-            self._integrate = dense.make_integrate(d, self.intr, scale)
+            integrate = dense.make_integrate(d, self.intr, scale)
+            self._integrate = self._program(
+                "integrate", lambda s, *a: assign_state(s, integrate(s, *a)))
         self._icp = self._icp_atlas = None
         if config.dense_icp.mode != "off":
             # with the atlas: the newest dense_icp.atlas_slots submaps,
             # re-posed by their anchors' current ring poses
             if self.atlas is not None:
-                self._icp_atlas = icp.make_icp_atlas(d, config.dense_icp,
-                                                     self.intr, scale)
+                run = icp.make_icp_atlas(d, config.dense_icp, self.intr, scale)
+                self._icp_atlas = self._program(
+                    "icp_atlas", lambda *a: _icp_vector(run(*a)))
             else:
-                self._icp = icp.make_icp(d, config.dense_icp, self.intr,
-                                         scale)
+                run = icp.make_icp(d, config.dense_icp, self.intr, scale)
+                self._icp = self._program("icp",
+                                          lambda *a: _icp_vector(run(*a)))
         self._last_icp_qt = None    # chained rescue poses (host)
         self.icp_events: List[dict] = []
 
+    def _program(self, name, fn):
+        """``fn`` as the shell calls it: on CUDA replayed as CUDA graphs
+        on the shell's stream and pool (``graphs[name]``), on the CPU run
+        eagerly."""
+        if self.device.type == "cuda":
+            g = self.graphs[name] = LiveGraphs(fn, stream=self._stream,
+                                               pool=self._pool, name=name)
+            return g
+        return fn
+
+    def _load(self, name, array, dtype=torch.float32) -> torch.Tensor:
+        """The static device tensor ``name`` (one per name, shape and
+        dtype, kept across calls: the graphs read it) with the host
+        ``array`` copied in, or filled with it when it is a scalar."""
+        a = np.asarray(array)
+        k = (name, a.shape, dtype)
+        buf = self._statics.get(k)
+        if buf is None:
+            buf = self._statics[k] = torch.empty(a.shape, dtype=dtype,
+                                                 device=self.device)
+        if a.ndim == 0:
+            return buf.fill_(a.item())
+        return upload_into(buf, a)
+
     @property
     def state(self):
+        """The live tracking state: the next ``process`` overwrites its
+        tensors in place (``pipeline.clone_state`` keeps a copy)."""
         return self._state
 
     @state.setter
     def state(self, value):
-        """Replace the tracking state (a resume): the loop runner counts
-        its ordinals on from the new map's insertions."""
-        self._state = value
+        """Replace the tracking state (a resume) by copying ``value`` into
+        the live tensors (``ValueError`` on a shape or dtype mismatch):
+        the loop runner counts its ordinals on from the new map's
+        insertions."""
+        assign_state(self._state, value)
         self._tracked_kf = self._num_kf = int(value.map.num_kf)
         if self._loop is not None:
             self._loop.start_at(self._tracked_kf)
 
     def _upload(self, rgb, depth, mask):
-        """The frame on the device. On CUDA it goes through pinned host
-        buffers with asynchronous copies, so the upload makes no host
-        sync; the buffers are reused on the next frame, after this
-        frame's output copy has waited for the stream."""
+        """The frame in the shell's static device buffers, which the
+        graphs read. On CUDA it goes through pinned host buffers with
+        asynchronous copies, so the upload makes no host sync and
+        allocates nothing; the host buffers are reused on the next frame,
+        after this frame's output copy has waited for the stream. A
+        frame without a mask gets a ones mask, filled once."""
         dev = self.device
         # torch's uint16 support is thin: widen depth to int32 on upload
         frame = [np.asarray(rgb, np.uint8), np.asarray(depth, np.int32)]
         if self.use_mask and mask is not None:
             frame.append(np.asarray(mask))
-        if dev.type == "cpu":
-            tensors = [torch.from_numpy(np.array(a)) for a in frame]
-        else:
-            key = [(a.shape, a.dtype) for a in frame]
-            if self._pinned is None or self._pinned[0] != key:
-                self._pinned = (key, [torch.from_numpy(np.empty(s, d))
-                                      .pin_memory() for s, d in key])
-            tensors = []
-            for a, buf in zip(frame, self._pinned[1]):
-                np.copyto(buf.numpy(), a)
-                tensors.append(buf.to(dev, non_blocking=True))
-        rgb_t, depth_t = tensors[:2]
+        bufs = []
+        for name, a in zip(("rgb", "depth", "mask"), frame):
+            k = (name, a.shape, a.dtype)
+            if k not in self._frame_bufs:
+                h = torch.from_numpy(np.empty(a.shape, a.dtype))
+                if dev.type == "cuda":
+                    h = h.pin_memory()
+                    self._frame_bufs[k] = (h, torch.empty_like(h, device=dev))
+                else:
+                    self._frame_bufs[k] = (h, h)
+            h, b = self._frame_bufs[k]
+            np.copyto(h.numpy(), a)
+            if b is not h:
+                b.copy_(h, non_blocking=True)
+            bufs.append(b)
+        rgb_t, depth_t = bufs[:2]
         mask_t = None
         if self.use_mask:
             if mask is not None:
-                mask_t = tensors[2]
+                mask_t = bufs[2]
             else:
-                if (self._ones_mask is None
-                        or tuple(self._ones_mask.shape) != rgb_t.shape[:2]):
-                    self._ones_mask = torch.ones(rgb_t.shape[:2],
-                                                 dtype=torch.uint8, device=dev)
-                mask_t = self._ones_mask
+                k = ("ones_mask", rgb_t.shape[:2], torch.uint8)
+                mask_t = self._statics.get(k)
+                if mask_t is None:
+                    mask_t = self._statics[k] = torch.ones(
+                        rgb_t.shape[:2], dtype=torch.uint8, device=dev)
         return rgb_t, depth_t, mask_t
 
     def process(self, rgb, depth, mask=None) -> dict:
         """Track one frame (rgb [H, W, 3] uint8, depth [H, W] uint16)."""
         args = self._upload(rgb, depth, mask)
         t0 = time.perf_counter()
-        self._state, out = self._step(self._state, *args)
-        o = output_to_host(out)
+        o = row_to_fields(self._track(self._state, *args)[0].cpu().numpy())
 
         if self._cull is not None and o["added_kf"]:
-            self._state = self._state._replace(
-                map=self._cull(self._state.map))
+            self._cull(self._state.map)
 
         ran_ba = False
         if self.ba_mode == "on_keyframe" and o["added_kf"]:
             tb = time.perf_counter()
-            new_map, stats = self._ba(self._state.map)
-            self._state = self._state._replace(map=new_map)
-            v = stats_vector(stats).cpu().numpy()
+            v = self._ba(self._state.map).cpu().numpy()
             self.ba_stats.append(stats_record(
                 v, wall_ms=(time.perf_counter() - tb) * 1e3))
             ran_ba = True
@@ -519,7 +577,8 @@ class SLAM(DenseViews):
         if self._loop is not None:
             if inserted:
                 self._loop.note_insertions(inserted)
-            self._state = self._loop.tick(self._state, self._frame, inflight)
+            assign_state(self._state, self._loop.tick(self._state,
+                                                      self._frame, inflight))
 
         if (self.ba_mode == "async" and o["added_kf"]
                 and self._async.inflight is None):
@@ -555,17 +614,19 @@ class SLAM(DenseViews):
         and the anchor alike, and the loop tick, the one rigid gauge
         change, comes after fusion (an asynchronous BA merge holds the
         window's newest keyframe fixed, so it is no gauge change)."""
-        dev = self.device
-        q = upload(np.asarray(o["pose_q"], np.float32), dev)
-        t = upload(np.asarray(o["pose_t"], np.float32), dev)
+        q = self._load("fuse_q", o["pose_q"])
+        t = self._load("fuse_t", o["pose_t"])
         if self.atlas is None:
-            self.tsdf = self._integrate(self.tsdf, depth_dev, q, t)
+            self._integrate(self.tsdf, depth_dev, q, t)
             return
-        if self._kf_insertions % self.config.dense.submap_every == 0:
-            self.atlas = self._submap_start(self.atlas, q, t,
-                                            self._num_kf - 1)
-        aq, at = anchor_pose_now(self.atlas, self._state.map)
-        self.atlas = self._submap_fuse(self.atlas, depth_dev, q, t, aq, at)
+        opens = self._kf_insertions % self.config.dense.submap_every == 0
+        if opens:
+            self.atlas = self.atlas._replace(count=self.atlas.count + 1)
+        slot = self._load("submap_slot", self.atlas.active_slot(), torch.int64)
+        if opens:
+            kid = self._load("kf_id", self._num_kf - 1, torch.int32)
+            self._submap_start(self.atlas, slot, q, t, kid)
+        self._submap_fuse(self.atlas, slot, self._state.map, depth_dev, q, t)
         self._kf_insertions += 1
 
     def _icp_tick(self, o, depth_dev) -> dict:
@@ -601,22 +662,22 @@ class SLAM(DenseViews):
             q0, t0 = self._last_icp_qt
         else:   # the held pose: the last one the device knows
             q0, t0 = o["pose_q"], o["pose_t"]
-        dev = self.device
-        q0 = upload(np.asarray(q0, np.float32), dev)
-        t0 = upload(np.asarray(t0, np.float32), dev)
+        q0 = self._load("icp_q", q0)
+        t0 = self._load("icp_t", t0)
         if self._icp is not None:
-            r = self._icp(self.tsdf, depth_dev, q0, t0)
+            v = self._icp(self.tsdf, depth_dev, q0, t0)
         else:
             win = submap.recent_slots_with_poses(
                 self.atlas, self._state.map, cfg.atlas_slots,
                 exclude_active=ok)
             if win is None:
                 return o    # no (independent) submap yet
-            r = self._icp_atlas(self.atlas, *(upload(a, dev) for a in win),
-                                depth_dev, q0, t0)
-        v = torch.cat([r.q, r.t, torch.stack([r.num_valid.to(r.q.dtype),
-                                              r.rmse_init, r.rmse])]
-                      ).cpu().numpy()
+            slots, aq, at = win
+            v = self._icp_atlas(self.atlas,
+                                self._load("icp_slots", slots, torch.int32),
+                                self._load("icp_aq", aq),
+                                self._load("icp_at", at), depth_dev, q0, t0)
+        v = v.cpu().numpy()
         q, t, n, rmse_init, rmse = v[:4], v[4:7], int(v[7]), v[8], v[9]
         accepted = bool(n >= cfg.min_points and rmse <= cfg.accept_rmse_m
                         and rmse <= rmse_init)
@@ -647,9 +708,9 @@ class SLAM(DenseViews):
             return o
         if self._async is not None and self._async.inflight is not None:
             return o    # a pending merge would clobber the fresh anchor
-        self._state, r = self._reloc(self._state, *frame_args,
-                                     exclude_from_id=self._tracked_kf)
-        res = reloc_to_host(r, self._state.map)
+        exclude = self._load("reloc_exclude", self._tracked_kf, torch.int32)
+        res = reloc_record(self._reloc(self._state, *frame_args,
+                                       exclude).cpu().numpy())
         if not res["success"]:
             return o
         self._fail_streak = 0
@@ -665,7 +726,7 @@ class SLAM(DenseViews):
 
     def _merge_inflight(self):
         merged, record = self._async.merge(self._state.map)
-        self._state = self._state._replace(map=merged)
+        assign_state(self._state.map, merged)
         self.ba_stats.append(record)
 
     def finish(self):
@@ -674,7 +735,8 @@ class SLAM(DenseViews):
         if self._async is not None and self._async.inflight is not None:
             self._merge_inflight()
         if self._loop is not None:
-            self._state = self._loop.tick(self._state, self._frame, None)
+            assign_state(self._state, self._loop.tick(self._state,
+                                                      self._frame, None))
 
     def run_global_ba(self, steps: int = 5, pcg_iters: int = 30,
                       group=None) -> list:
@@ -685,7 +747,7 @@ class SLAM(DenseViews):
         new_map, costs = run_global_ba_on_map(
             self.state.map, self.intr, self.config.ba, steps=steps,
             pcg_iters=pcg_iters, group=group)
-        self._state = self._state._replace(map=new_map)
+        assign_state(self._state.map, new_map)
         return costs
 
     def refined_trajectory(self) -> np.ndarray:

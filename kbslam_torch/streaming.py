@@ -76,10 +76,10 @@ from kbslam_torch.loop.reloc import make_reloc_step
 from kbslam_torch.loop.runner import LoopCloser
 from kbslam_torch.mapping import dense, submap
 from kbslam_torch.mapping.cull import make_cull
-from kbslam_torch.mapping.state import device_copy
-from kbslam_torch.pipeline import TrackOutput, TrackState, make_track_step
-from kbslam_torch.slam import (OUTPUT_WIDTH, DenseViews, check_dense_config,
-                               output_rows, reloc_to_host, row_to_fields)
+from kbslam_torch.pipeline import (OUTPUT_WIDTH, TrackOutput, TrackState,
+                                   assign_state, clone_state, make_track_step,
+                                   output_rows, row_to_fields)
+from kbslam_torch.slam import DenseViews, check_dense_config, reloc_to_host
 
 
 def unpack_mask_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
@@ -115,22 +115,6 @@ def make_chunk_step(cfg, intr: Intrinsics, chunk: int, use_mask: bool = False,
             outs.append(out)
         return state, TrackOutput(*(torch.stack(f) for f in zip(*outs)))
     return run
-
-
-def clone_state(state: TrackState) -> TrackState:
-    """A state whose every tensor is a fresh copy."""
-    return TrackState(device_copy(state.map),
-                      *(t.clone() for t in state[1:]))
-
-
-def assign_state(dst: TrackState, src: TrackState) -> TrackState:
-    """Copy ``src`` into ``dst``'s tensors, in place (a field that is
-    already the same tensor is skipped); returns ``dst``."""
-    for d, s in zip(list(dst.map) + list(dst[1:]),
-                    list(src.map) + list(src[1:])):
-        if d.data_ptr() != s.data_ptr():
-            d.copy_(s)
-    return dst
 
 
 class _Pending(NamedTuple):

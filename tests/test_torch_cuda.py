@@ -539,3 +539,50 @@ def test_nccl_group_of_one_equals_the_unsharded_solve(cuda_device):
         assert all(torch.equal(a, b) for a, b in zip(res[name], res["one"]))
     assert res["counts"]["all_reduce"][0] > 0
     assert res["counts"]["reduce_scatter"][0] > 0
+
+
+@pytest.mark.parametrize("case", ["every_program", "atlas"])
+def test_graphed_shell_equals_the_eager_drive(cuda_device, case):
+    """SLAM on the card, each program a replayed CUDA graph, against the
+    same shell with its programs called eagerly on the card
+    (``EagerSLAM``; tests/test_torch_slam_graph.py holds the shell
+    against a drive of the eager functions on the CPU): poses,
+    diagnostics, ba_stats, events, final map and dense model bit-equal,
+    the live tensors never moved, one tracking replay per frame.
+    "every_program": the lost-and-found scene with BA, cull, loop,
+    relocalization, the volume, ICP rescue and a resume through the
+    ``state`` setter; "atlas": the submap atlas and its ICP rescue."""
+    from kbslam_torch.device import tensor_leaves
+    from test_torch_slam_graph import (EagerSLAM, assert_shell_equals_drive,
+                                       atlas_case, every_program_cfg,
+                                       lost_and_found, run_record,
+                                       shell_run)
+
+    if case == "every_program":
+        cfg, (K, rgb, dep), masks, rewind = (every_program_cfg(),
+                                             lost_and_found(), None, (25, 30))
+    else:
+        (cfg, K, rgb, dep, masks), rewind = atlas_case(), None
+    slam = SLAM(cfg, K, device=cuda_device)
+    ptrs = []
+    shell_run(slam, rgb, dep, masks, rewind=rewind, on_frame=lambda s: (
+        ptrs.append([t.data_ptr() for t in tensor_leaves(
+            (s.state, s.tsdf, s.atlas))])))
+    eager = shell_run(EagerSLAM(cfg, K, device=cuda_device), rgb, dep, masks,
+                      rewind=rewind)
+    assert not eager.graphs
+    assert_shell_equals_drive(slam, run_record(eager))
+    assert all(p == ptrs[0] for p in ptrs)
+    g = slam.graphs
+    # one tracking graph, and one more for the frames that bring a mask
+    assert g["track"].replays == len(rgb)
+    assert len(g["track"].graphs) == (1 if masks is None else 2)
+    assert g["ba"].replays == len(slam.ba_stats) > 0
+    assert g["icp" if case == "every_program" else "icp_atlas"].replays > 0
+    if case == "every_program":
+        assert slam.reloc_events and g["reloc"].replays >= 1
+        assert g["cull"].replays >= 1 and g["integrate"].replays >= 1
+    else:
+        # one graph each, whichever ring slot it opens or fuses
+        assert g["submap_fuse"].replays >= 2
+        assert len(g["submap_fuse"].graphs) == len(g["submap_start"].graphs) == 1

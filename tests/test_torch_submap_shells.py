@@ -138,6 +138,8 @@ def _correct_ring(shell, D, slots=None):
     (all when None) of either package's shell, in place of its state."""
     m = shell.state.map
     torch_shell = torch.is_tensor(m.kf_q)
+    if torch_shell:     # the setter below writes into the live map
+        m = type(m)(*(x.clone() for x in m))
     q = np.array(m.kf_q.numpy() if torch_shell else m.kf_q)
     t = np.array(m.kf_t.numpy() if torch_shell else m.kf_t)
     for s in (range(len(q)) if slots is None else slots):
