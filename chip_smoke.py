@@ -8,7 +8,9 @@ and ``python3 chip_smoke.py --only distributed`` runs phase 22 after
 only the phases it is held to (1, 2, phase 5's sequence, 7, 18 and 19),
 for a machine with several cards; ``--only gates`` runs phase 23 after
 phases 1 and 2, on phase 6's window; ``--only shell`` runs phases 5 and
-7 after phases 1 and 2.
+7 after phases 1 and 2; ``--only multistream`` runs phases 4b and 19
+after phases 1 and 2, with the kernels line of the batched describe
+launch.
 
 Phases (each prints one line or more; any failure raises and exits
 non-zero):
@@ -28,6 +30,10 @@ non-zero):
                 away from a bin's rounding edge, >= 99.9% bit-identical;
                 timed beside the plain composition and the path it
                 replaces (patch kernel + plain angle and bit stages);
+                4b. the same kernel over phase 19's shapes in one launch
+                (8 pyramids, 8 x 3072 keypoints): bit-equal to 8 single
+                launches, phase 4's gates against the twin, timed beside
+                the twin and the 8 single launches;
   5. slice    — the tracking step (SLAM with local BA off) over a 60-frame
                 640x480 synthetic RGB-D sequence at the default
                 configuration, each frame one replay of the captured
@@ -184,17 +190,25 @@ non-zero):
                 refined ATE beside phase 7's);
  19. multistream — BASELINE.json config 4: 8 streams of 640x480
                 (``render_sequence`` seeds 0-7, 33 frames) at
-                ``SLAMConfig()`` through ``make_multistream_step`` (one CUDA
-                graph per stream, replayed on side streams, then serially:
-                the two bit-equal) and ``make_multistream_scan``
-                (apply_every 4, from frame 0's warm start): every stream
-                tracked with >= 50 inliers, streams 0 and 7 bit-equal to
-                their single-stream runs, tests/test_parallel.py:95-156's
-                deferred-scan gates, the describe kernel once per stream
-                per frame in every graph (torch.profiler); prints
-                aggregate frames/s and ms per step on side streams and
-                serially, immediate and deferred, the device busy share,
-                peak memory, phase 10's single-stream pace beside them;
+                ``SLAMConfig()`` as one batched program: ``make_multistream_
+                step`` (one CUDA graph per step over the stacked state, one
+                describe kernel per replay, torch.profiler) and ``make_
+                multistream_scan`` (apply_every 4, from frame 0's warm
+                start, one graph per block of 4 frames, 4 describe kernels
+                per replay; its replays bit-equal to its capture run): every
+                stream tracked with >= 50 inliers after frame 0, >= 2
+                keyframes per stream, each stream's ATE under 50 mm,
+                tests/test_parallel.py:95-156's deferred-scan gates; then
+                the per-stream yardstick (``make_perstream_step``/``_scan``,
+                one graph per stream on side streams, then serially: the
+                two bit-equal, streams 0 and 7 bit-equal to their
+                single-stream runs, the same gates); prints, stream by
+                stream, whether the batched run is bit-equal to the
+                yardstick and where it first differs, with the largest
+                position gap; ms per step and frames/s of both, kernel
+                nodes per replay, describe launches, capture s, device
+                busy share and peak memory, phase 10's single-stream pace
+                beside them;
  20. longrun  — tests/test_longrun.py on the card: 200 palindrome frames
                 of a 25-frame 120x160 sequence on a 6-keyframe,
                 512-landmark map with async BA and culling, through
@@ -235,9 +249,13 @@ non-zero):
                 world (host ms, device ms, collectives and bytes per solve
                 and per PCG trip); ``SLAM.run_global_ba(group=)`` on phase
                 7's map against phase 18's; config 4's 8 streams sharded
-                over the ranks, immediate and deferred, every stream
-                bit-equal to phase 19's (SHA-256 of its outputs and
-                state), 0 collectives, frames/s and describe launches;
+                over the ranks, immediate and deferred, each rank's block
+                as one batched program (phase 19's tracking and deferred
+                gates; prints whether each stream is bit-equal to phase
+                19's batched run) and as one graph per stream (every
+                stream bit-equal to phase 19's per-stream run, SHA-256 of
+                its outputs and state), 0 collectives, frames/s and
+                describe launches of both;
                 phase 7's keyframes fused into a 512^3 volume in voxel
                 slabs, gathered bit-equal to the unsharded ``integrate``
                 on the card, 0 collectives, device ms and peak memory per
@@ -263,17 +281,20 @@ non-zero):
 The dense stages, the atlas, the aligners, global BA, the dense
 reference solver and the multistream shell are plain torch, not kernels of the kernels line. Then
 one JSON line about the kernels, the nvidia-smi line, and the result
-line. The describe kernel's launch count sums phases 5, 7 and 10, the
-relocalization attempts of phase 14, phase 16's dense SLAM run, phase
-17's atlas SLAM run, phase 19's runs, phase 21's runs (its chunked
-CLI runs add their replays x 8), phase 22's ranks and phase 23's runs.
-The wrapper's counter counts the eager calls (each capture's warm-up,
-and in phases 10, 19 and 22 the chunk's tail; a call inside a capture
-launches nothing and is not counted), and the graphs' replays, which
-no Python runs, add their replay counts times the kernel's launches in
-one replay, counted by torch.profiler: one per replay of a SLAM
-shell's tracking or relocalization graph (``describe_launches``),
-eight per chunk replay.
+line. The describe kernel has two entries there: its launches over one
+pyramid, which sum phases 5, 7 and 10, the relocalization attempts of
+phase 14, phase 16's dense SLAM run, phase 17's atlas SLAM run, phase
+19's and phase 22's per-stream runs, phase 21's runs (its chunked CLI
+runs add their replays x 8) and phase 23's runs; and its launches over
+the 8 streams of config 4, phase 19's and phase 22's batched runs, with
+phase 4b's figures. The wrapper's counter counts the eager calls (each
+capture's warm-up, and in phase 10 the chunk's tail; a call inside a
+capture launches nothing and is not counted), and the graphs' replays,
+which no Python runs, add their replay counts times the kernel's
+launches in one replay, counted by torch.profiler: one per replay of a
+SLAM shell's tracking or relocalization graph (``describe_launches``),
+eight per chunk replay, one per batched step replay and four per
+batched block replay.
 
 Times: device time per call, from CUDA events around the replay of a
 CUDA graph of 20 calls (so a wrapper's host time is not counted), and
@@ -629,6 +650,61 @@ def _shell_figures(slam, frames):
     return (sum(x.replays for x in g.values()) / frames,
             {k: [round(c, 2) for c in x.capture_s] for k, x in g.items()},
             {k: x.replays for k, x in g.items()})
+
+
+def batched_describe_phase(dev, smi):
+    """(4b) The describe kernel over 8 pyramids of [8, 480, 640] and
+    8 x 3072 keypoints in one launch (phase 19's shapes): bit-equal to 8
+    single launches of it, held to phase 4's gates against the plain
+    twin on the same inputs, timed beside the twin and the 8 single
+    launches it replaces. Returns the kernels line's figures."""
+    from kbslam_torch.frontend import brief
+    from kbslam_torch.ops import describe as describe_ops
+
+    parts = [patch_inputs(480, 640, 3072, seed=100 + i, dev=dev)
+             for i in range(MS_STREAMS)]
+    args = [torch.stack(x).contiguous() for x in zip(*parts)]
+    got = describe_ops.describe_keypoints(*args)
+    single = [describe_ops.describe_keypoints(*p) for p in parts]
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(single):
+        if not (torch.equal(got[0][i], a) and torch.equal(got[1][i], b)):
+            raise AssertionError(f"batched describe launch: stream {i} != "
+                                 "its single launch")
+    ref = describe_ops.describe_keypoints_reference(*args)
+    counts = describe_check((got[0].reshape(-1), got[1].reshape(-1, 256)),
+                            (ref[0].reshape(-1), ref[1].reshape(-1, 256)))
+    print(f"[describe] {MS_STREAMS} x 3072 keypoints of [8,480,640] in one "
+          f"launch: bit-equal to {MS_STREAMS} single launches; against the "
+          f"twin {counts}", flush=True)
+
+    def singles():
+        return [describe_ops.describe_keypoints(*p) for p in parts]
+
+    ms = cuda_ms(lambda: describe_ops.describe_keypoints(*args))
+    plain = cuda_ms(lambda: describe_ops.describe_keypoints_reference(*args))
+    s_ms = cuda_ms(singles)
+    s_ms2 = cuda_ms(singles)
+    plain2 = cuda_ms(lambda: describe_ops.describe_keypoints_reference(*args))
+    ms2 = cuda_ms(lambda: describe_ops.describe_keypoints(*args))
+    n = args[1].numel()
+    bins = brief.angle_bins(ref[0])
+    covered = sum(covered_bytes(*p) for p in parts)
+    table_bytes = int(torch.unique(bins).numel()) * 256 * 2 * 2
+    nbytes = covered + 3 * 4 * n + table_bytes + n * (4 + 256)
+    disc = int(((np.arange(S) - 20)[:, None] ** 2
+                + (np.arange(S) - 20)[None, :] ** 2 <= 15 * 15).sum())
+    flops = n * (4 * disc + 3 * 256)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[describe] {MS_STREAMS} x 3072 keypoints in one launch: kernel "
+          f"{ms:.4f}/{ms2:.4f} ms, {MS_STREAMS} single launches "
+          f"{s_ms:.4f}/{s_ms2:.4f} ms, plain twin {plain:.4f}/{plain2:.4f} "
+          f"ms (device time, CUDA graph); bytes {nbytes} ({covered} of "
+          f"pyramid covered, {table_bytes} of pair table, {n * 260} "
+          f"written), {flops} flop; bound {b_ms * 1e3:.2f} us by {b_by}, "
+          f"kernel at {b_ms / ms:.1%} of it; {smi}", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=counts["max_angle_err"])
 
 
 def slice_phase(dev, seq, smi):
@@ -2658,21 +2734,143 @@ def _stream_digests(outs, state, first=0) -> list:
     return digests
 
 
+def _graph_of(program):
+    """The one CUDA graph a batched multistream program captured."""
+    (call,) = program.graphs.graphs.values()
+    return call.graph
+
+
+def _first_gap(outs_a, outs_b, state_a, state_b, i):
+    """Where stream i of two runs first differs: (frame, field) or
+    (None, field of the final state) or None; and the largest gaps
+    between the two runs' camera poses over the frames (metres,
+    degrees)."""
+    gap = (max(float((a.pose_t[i] - b.pose_t[i]).norm())
+               for a, b in zip(outs_a, outs_b)),
+           max(float(_angle_deg(a.pose_q[i:i + 1].cpu(),
+                                b.pose_q[i:i + 1].cpu())[0])
+               for a, b in zip(outs_a, outs_b)))
+    for t, (a, b) in enumerate(zip(outs_a, outs_b)):
+        for name, x, y in zip(a._fields, a, b):
+            if not torch.equal(x[i], y[i]):
+                return (t, name), gap
+    names = [f"map.{f}" for f in state_a.map._fields] + list(
+        state_a._fields[1:])
+    leaves = zip(names, list(state_a.map) + list(state_a[1:]),
+                 list(state_b.map) + list(state_b[1:]))
+    for name, x, y in leaves:
+        if not torch.equal(x[i], y[i]):
+            return (None, name), gap
+    return None, gap
+
+
+def _deferred_gates(kfs_d, kfs_i, num_mp_d, ninl_d, ninl_i, what):
+    """tests/test_parallel.py:95-156's deferred-scan gates against the
+    immediate run; returns (tracked share deferred, immediate)."""
+    ok_d, ok_i = (ninl_d[2:] > 0).mean(), (ninl_i[2:] > 0).mean()
+    if not ((kfs_d >= 2).all() and (np.abs(kfs_d - kfs_i) <= 1).all()
+            and (num_mp_d > 0).all() and ok_d >= ok_i - 0.15
+            and ninl_d[2:].mean() >= 0.7 * ninl_i[2:].mean()):
+        raise AssertionError(
+            f"{what} deferred scan gates: keyframes {kfs_d} vs {kfs_i}, "
+            f"tracked {ok_d} vs {ok_i}, inliers {ninl_d[2:].mean()} vs "
+            f"{ninl_i[2:].mean()}")
+    return ok_d, ok_i
+
+
+def _tracking_gates(outs, final, gt, what):
+    """Every stream tracked with >= MIN_INLIERS inliers after frame 0,
+    >= 2 keyframes per stream, each stream's ATE against the rendered
+    ground truth (gt [S, T, 3]) under MAX_ATE_M. Returns (min inliers,
+    keyframes, ATE per stream in metres)."""
+    from kbslam_torch.eval import trajectory
+
+    ok = torch.stack([o.success for o in outs[1:]]).cpu()
+    inl = torch.stack([o.num_inliers for o in outs[1:]]).cpu()
+    if not (ok.all() and (inl >= MIN_INLIERS).all()):
+        raise AssertionError(f"{what}: a stream failed or fell under "
+                             f"{MIN_INLIERS} inliers: min {inl.min(0)}")
+    kfs = final.map.num_kf.cpu()
+    if not (kfs >= 2).all():
+        raise AssertionError(f"{what}: keyframes {kfs.tolist()}")
+    est = torch.stack([o.pose_t for o in outs], 1).cpu().numpy()  # [S, T, 3]
+    ate = [trajectory.ate_rmse(est[i], gt[i]) for i in range(len(gt))]
+    if max(ate) >= MAX_ATE_M:
+        raise AssertionError(f"{what}: ATE per stream {ate}")
+    return int(inl.min()), kfs.numpy(), ate
+
+
+def _timed_steps(step, state, rgb, dep):
+    """Every frame through ``step``: (outputs, final state, warm state
+    after frame 0, ms per step over steps 2..T on the device's clock,
+    device busy share, host s of the first call)."""
+    T = rgb.shape[0]
+    outs, begins, ends = [], [], []
+    t0 = time.perf_counter()
+    for t in range(T):
+        begins.append(torch.cuda.Event(enable_timing=True))
+        begins[-1].record()
+        state, out = step(state, rgb[t], dep[t])
+        outs.append(out)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        if t == 0:
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            warm = _clone_state(state)
+    torch.cuda.synchronize()
+    # the time the stream waited between one step's end and the next
+    # one's first copy is idle
+    total = ends[0].elapsed_time(ends[-1])
+    idle = sum(ends[t - 1].elapsed_time(begins[t]) for t in range(1, T))
+    return (outs, _clone_state(state), warm, total / (T - 1),
+            1.0 - idle / total, first_s)
+
+
+def _clone_state(state):
+    from kbslam_torch.pipeline import clone_state
+
+    return clone_state(state)
+
+
+def _timed_scan(scan, warm, rgb, dep, **kw):
+    """One run of a deferred scan from a copy of ``warm``: (final state,
+    inlier counts [T, S], ms per frame of all streams, CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    st_d, ninl_d = scan(_clone_state(warm), rgb, dep, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return (_clone_state(st_d), ninl_d.clone(),
+            start.elapsed_time(end) / rgb.shape[0])
+
+
+def _same_state(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in
+               zip(list(a.map) + list(a[1:]), list(b.map) + list(b[1:])))
+
+
 def multistream_phase(dev, smi, pace):
     """(19) Config 4: 8 streams of 640x480 at SLAMConfig(), immediate and
-    deferred (apply_every 4), side streams and serial. Returns the
-    describe launches of the runs, and for phase 22 the frames and each
-    stream's digest of the immediate and the deferred run."""
+    deferred (apply_every 4): the batched program (one CUDA graph per
+    step and per block of K frames, the describe kernel once per step
+    over all 8 x 3072 keypoints) held to the tracking gates, then the
+    per-stream graphs (side streams, serially) as the yardstick, and the
+    batched run against them stream by stream. Returns the describe
+    launches ((single-stream, batched)), and for phase 22 the frames, the
+    ground truth and each stream's digests of the runs."""
     from kbslam_torch import config
     from kbslam_torch.geom.camera import Intrinsics
     from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.parallel.multistream import (batched_init_state,
                                                    make_multistream_scan,
                                                    make_multistream_step,
+                                                   make_perstream_scan,
+                                                   make_perstream_step,
                                                    stream_state)
     from kbslam_torch.pipeline import init_state, track_step
     from kbslam_torch.pnp.ransac import hash_sampler
-    from kbslam_torch.streaming import clone_state
 
     S, T, K = MS_STREAMS, MS_FRAMES, MS_K
     t0 = time.perf_counter()
@@ -2685,56 +2883,86 @@ def multistream_phase(dev, smi, pace):
     dep = torch.from_numpy(np.stack([np.stack([s.depth[t] for s in seqs])
                                      for t in range(T)]).astype(np.int32)
                            ).pin_memory()
+    gt = np.stack([s.poses[:, :3, 3] for s in seqs])
     seq_K = seqs[0].K
     del seqs
-    describe_ops.reset_launches()
 
-    def leaves(st):
-        return list(st.map) + list(st[1:])
-
-    # immediate insertion: side streams (the first call captures), then
-    # the same frames replayed serially on one stream
+    # (a) the batched program: the main path of this phase, with the
+    # kernel counts at 0 just before it and read just after
+    reset_launch_counts()
     step = make_multistream_step(cfg, intr, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    outs, final, warm, ms_b, busy_b, cap_s = _timed_steps(
+        step, batched_init_state(cfg, S, dev), rgb, dep)
+    peak_b = (torch.cuda.max_memory_allocated() - base) / 1e9
+    scan = make_multistream_scan(cfg, intr, S, apply_every=K)
+    t1 = time.perf_counter()
+    st_c, ninl_c, ms_dc = _timed_scan(scan, warm, rgb[1:], dep[1:])
+    scan_cap_s = time.perf_counter() - t1
+    st_d, ninl_d, ms_d = _timed_scan(scan, warm, rgb[1:], dep[1:])
+    eager_b = describe_ops.launches
+    replays_b = (step.program.replays, scan.program.replays)
+    if not (torch.equal(ninl_c, ninl_d) and _same_state(st_c, st_d)):
+        raise AssertionError("batched scan: the replays != the capture run")
+    p_step = _replay_profile(_graph_of(step.program))
+    p_block = _replay_profile(_graph_of(scan.program))
+    if (p_step[3], p_block[3]) != (1, K):
+        raise AssertionError(f"batched describe kernels: step {p_step[3]}, "
+                             f"block {p_block[3]} (expected 1, {K})")
+    batched = eager_b + replays_b[0] * p_step[3] + replays_b[1] * p_block[3]
+    if batched == 0:
+        raise AssertionError("the batched path launched no describe kernel")
+    inl_min, kfs, ate = _tracking_gates(outs, final, gt, "batched")
+    ninl_i = torch.stack([o.num_inliers for o in outs[1:]]).cpu().numpy()
+    kfs_d = st_d.map.num_kf.cpu().numpy()
+    ok_d, ok_i = _deferred_gates(kfs_d, kfs, st_d.map.num_mp.cpu().numpy(),
+                                 ninl_d.cpu().numpy(), ninl_i, "batched")
+    print(f"[multistream] config 4, batched: {S} streams of 640x480 (seeds "
+          f"0-{S - 1}, rendered in {render_s:.1f} s), SLAMConfig(), {T} "
+          f"frames each, one CUDA graph per step over the stacked state: "
+          f"every stream tracked with >= {MIN_INLIERS} inliers after frame 0"
+          f" (min {inl_min}), keyframes {kfs.tolist()}, ATE per stream "
+          f"{[round(a * 1e3, 2) for a in ate]} mm; immediate {ms_b:.2f} ms "
+          f"per step of all {S} streams = {S * 1e3 / ms_b:.1f} frames/s (CUDA"
+          f" events, steps 2-{T}), device busy {busy_b:.1%}; one step replay "
+          f"{p_step[1]} kernel nodes, {p_step[2]:.2f} ms kernel time, "
+          f"{p_step[3]} describe kernel ({p_step[4]:.4f} ms), top {p_step[5]}"
+          f"; first call (warm-up and capture) {cap_s:.2f} s; peak device "
+          f"memory {peak_b:.3f} GB; deferred (apply_every {K}, from frame "
+          f"0's warm start, frames 1-{T - 1}): keyframes {kfs_d.tolist()}, "
+          f"tracked {ok_d:.3f} (immediate {ok_i:.3f}), {ms_d:.2f} ms per "
+          f"frame of all {S} streams = {S * 1e3 / ms_d:.1f} frames/s (first "
+          f"run, with the capture, {ms_dc:.2f} ms, {scan_cap_s:.2f} s); one "
+          f"block replay {p_block[1]} kernel nodes, {p_block[2]:.2f} ms, "
+          f"{p_block[3]} describe kernels; the replays bit-equal to the "
+          f"capture run; describe launches {batched} = {eager_b} eager "
+          f"(warm-ups) + {replays_b[0]} step replays x {p_step[3]} + "
+          f"{replays_b[1]} block replays x {p_block[3]}; {smi}", flush=True)
+
+    # (b) the yardstick: one graph per stream on side streams (the first
+    # call captures), then the same frames replayed serially
+    describe_ops.reset_launches()
+    pstep = make_perstream_step(cfg, intr, S)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     runs = {}
     for serial in (False, True):
-        state, outs, begins, ends = batched_init_state(cfg, S, dev), [], [], []
-        for t in range(T):
-            begins.append(torch.cuda.Event(enable_timing=True))
-            begins[-1].record()
-            state, out = step(state, rgb[t], dep[t], serial=serial)
-            outs.append(out)
-            ends.append(torch.cuda.Event(enable_timing=True))
-            ends[-1].record()
-            if t == 0 and not serial:
-                warm = clone_state(state)
-        torch.cuda.synchronize()
-        # steps 2..T on the device's clock, and the time the stream
-        # waited between one step's end and the next one's first copy
-        total = ends[0].elapsed_time(ends[-1])
-        idle = sum(ends[t - 1].elapsed_time(begins[t]) for t in range(1, T))
-        runs[serial] = (outs, clone_state(state), total / (T - 1),
-                        1.0 - idle / total)
+        def one(st, r, d, serial=serial):
+            return pstep(st, r, d, serial=serial)
+        runs[serial] = _timed_steps(one, batched_init_state(cfg, S, dev), rgb,
+                                    dep)
         if not serial:
-            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    outs, final, ms_side, busy_side = runs[False]
-    ms_serial, busy_serial = runs[True][2:]
-    if not (all(torch.equal(a, b) for o1, o2 in zip(outs, runs[True][0])
+            peak_p = (torch.cuda.max_memory_allocated() - base) / 1e9
+    outs_p, final_p, warm_p, ms_side, busy_side, _ = runs[False]
+    ms_serial, busy_serial = runs[True][3:5]
+    if not (all(torch.equal(a, b) for o1, o2 in zip(outs_p, runs[True][0])
                 for a, b in zip(o1, o2))
-            and all(torch.equal(a, b) for a, b in
-                    zip(leaves(final), leaves(runs[True][1])))):
-        raise AssertionError("multistream: serial replays != side streams")
-    ok = torch.stack([o.success for o in outs[1:]]).cpu()
-    inl = torch.stack([o.num_inliers for o in outs[1:]]).cpu()
-    if not (ok.all() and (inl >= MIN_INLIERS).all()):
-        raise AssertionError(f"multistream: a stream failed or fell under "
-                             f"{MIN_INLIERS} inliers: min {inl.min(0)}")
-    kfs = final.map.num_kf.cpu()
-    if not (kfs >= 2).all():
-        raise AssertionError(f"multistream keyframes {kfs.tolist()}")
-
+            and _same_state(final_p, runs[True][1])):
+        raise AssertionError("per-stream: serial replays != side streams")
+    _tracking_gates(outs_p, final_p, gt, "per-stream")
     # two streams against their single-stream runs (the same draws)
     for i in (0, S - 1):
         st = init_state(cfg, dev)
@@ -2742,91 +2970,69 @@ def multistream_phase(dev, smi, pace):
             st, o = track_step(st, rgb[t, i].to(dev), dep[t, i].to(dev), None,
                                intr, cfg,
                                hash_sampler(0, st.frame_count * S + i))
-            if not all(torch.equal(a, b[i]) for a, b in zip(o, outs[t])):
+            if not all(torch.equal(a, b[i]) for a, b in zip(o, outs_p[t])):
                 raise AssertionError(f"stream {i} frame {t} != its "
                                      "single-stream run")
-        if not all(torch.equal(a, b) for a, b in
-                   zip(leaves(st), leaves(stream_state(final, i)))):
+        if not _same_state(st, stream_state(final_p, i)):
             raise AssertionError(f"stream {i}'s state != its single run")
-
-    # deferred insertion from the warm start (frame 0), K frames a block
-    scan = make_multistream_scan(cfg, intr, S, apply_every=K)
-    n = T - 1
-    res = {}
-    for name, serial in (("capture", False), ("side", False),
-                         ("serial", True)):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        st_d, ninl_d = scan(clone_state(warm), rgb[1:], dep[1:],
-                            serial=serial)
-        end.record()
-        torch.cuda.synchronize()
-        res[name] = (clone_state(st_d), ninl_d.clone(),
-                     start.elapsed_time(end) / n)
-    st_d, ninl_d, _ = res["side"]
+    pscan = make_perstream_scan(cfg, intr, S, apply_every=K)
+    res = {name: _timed_scan(pscan, warm_p, rgb[1:], dep[1:], serial=serial)
+           for name, serial in (("capture", False), ("side", False),
+                                ("serial", True))}
+    pst_d, pninl_d, ms_p_side = res["side"]
     for other in ("capture", "serial"):
-        if not (torch.equal(ninl_d, res[other][1])
-                and all(torch.equal(a, b) for a, b in
-                        zip(leaves(st_d), leaves(res[other][0])))):
-            raise AssertionError(f"deferred scan: {other} run != side")
-    ninl_d = ninl_d.cpu().numpy()
-    ninl_i = inl.numpy()
-    kfs_d, kfs_i = st_d.map.num_kf.cpu().numpy(), kfs.numpy()
-    ok_d, ok_i = (ninl_d[2:] > 0).mean(), (ninl_i[2:] > 0).mean()
-    if not ((kfs_d >= 2).all() and (np.abs(kfs_d - kfs_i) <= 1).all()
-            and (st_d.map.num_mp > 0).all() and ok_d >= ok_i - 0.15
-            and ninl_d[2:].mean() >= 0.7 * ninl_i[2:].mean()):
-        raise AssertionError(
-            f"deferred scan gates: keyframes {kfs_d} vs {kfs_i}, tracked "
-            f"{ok_d} vs {ok_i}, inliers {ninl_d[2:].mean()} vs "
-            f"{ninl_i[2:].mean()}")
-
-    # the describe kernel: once per stream per frame in every graph
-    n_step = _replay_profile(step.streams._graphs[0])[3]
-    n_block = _replay_profile(scan.streams._graphs[0])[3]
+        if not (torch.equal(pninl_d, res[other][1])
+                and _same_state(pst_d, res[other][0])):
+            raise AssertionError(f"per-stream scan: {other} run != side")
+    _deferred_gates(pst_d.map.num_kf.cpu().numpy(),
+                    final_p.map.num_kf.cpu().numpy(),
+                    pst_d.map.num_mp.cpu().numpy(), pninl_d.cpu().numpy(),
+                    torch.stack([o.num_inliers for o in outs_p[1:]]).cpu()
+                    .numpy(), "per-stream")
+    n_step = _replay_profile(pstep.streams._graphs[0])[3]
+    n_block = _replay_profile(pscan.streams._graphs[0])[3]
     if (n_step, n_block) != (1, K):
-        raise AssertionError(f"describe kernels per graph: step {n_step}, "
-                             f"block {n_block} (expected 1, {K})")
-    eager = describe_ops.launches
-    summed, n_kern = _kernel_sum(lambda: step(final, rgb[-1], dep[-1]))
-    launches = (eager + step.streams.replays * S * n_step
-                + scan.streams.replays * S * n_block)
-    ms_d_side, ms_d_serial = res["side"][2], res["serial"][2]
-    print(f"[multistream] config 4: {S} streams of 640x480 (seeds 0-{S - 1},"
-          f" rendered in {render_s:.1f} s), SLAMConfig(), {T} frames each: "
-          f"every stream tracked with >= {MIN_INLIERS} inliers after frame 0"
-          f" (min {int(inl.min())}), keyframes {kfs.tolist()}; streams 0 and "
-          f"{S - 1} bit-equal to their single-stream runs, the serial replays"
-          f" bit-equal to the side streams; immediate: {ms_side:.2f} ms per "
-          f"step of all {S} streams on side streams = "
-          f"{S * 1e3 / ms_side:.1f} frames/s, serial {ms_serial:.2f} ms = "
-          f"{S * 1e3 / ms_serial:.1f} frames/s (CUDA events, steps 2-{T}); "
-          f"device busy {busy_side:.1%} of the side-stream run and "
-          f"{busy_serial:.1%} of the serial one (the rest: the stream idle "
-          f"between steps, CUDA events); one step: {n_kern} kernels, "
-          f"{summed:.2f} ms summed kernel time (torch.profiler; kernels that "
-          f"overlap add up); "
-          f"deferred (apply_every {K}, from frame 0's warm start, frames "
-          f"1-{T - 1}): keyframes {kfs_d.tolist()} (immediate "
-          f"{kfs_i.tolist()}), tracked {ok_d:.3f} (immediate {ok_i:.3f}), "
-          f"mean inliers {ninl_d[2:].mean():.1f} (immediate "
-          f"{ninl_i[2:].mean():.1f}); {ms_d_side:.2f} ms per frame of all "
-          f"{S} streams on side streams = {S * 1e3 / ms_d_side:.1f} frames/s,"
-          f" serial {ms_d_serial:.2f} ms = {S * 1e3 / ms_d_serial:.1f} "
-          f"frames/s (first run, with the captures, "
-          f"{res['capture'][2]:.2f} ms); phase 10's single stream "
-          f"{pace['ms_frame']:.2f} ms/frame = {1e3 / pace['ms_frame']:.1f} "
-          f"frames/s; peak device memory of the immediate run "
-          f"{peak_gb:.3f} GB; describe launches {launches} = {eager} eager "
-          f"(warm-ups, single-stream runs) + {step.streams.replays} step "
-          f"replays x {S} x {n_step} + {scan.streams.replays} block replays "
-          f"x {S} x {n_block}; {smi}", flush=True)
-    ninl_rows = torch.from_numpy(ninl_d).movedim(1, 0)
-    return launches, dict(
-        rgb=rgb, dep=dep, K=seq_K,
+        raise AssertionError(f"describe kernels per stream graph: step "
+                             f"{n_step}, block {n_block} (expected 1, {K})")
+    eager_p = describe_ops.launches
+    summed, n_kern = _kernel_sum(lambda: pstep(final_p, rgb[-1], dep[-1]))
+    single = (eager_p + pstep.streams.replays * S * n_step
+              + pscan.streams.replays * S * n_block)
+
+    # (c) the batched run against the yardstick, stream by stream
+    same = []
+    for i in range(S):
+        where, gap = _first_gap(outs, outs_p, final, final_p, i)
+        same.append(f"{i}: " + ("bit-equal" if where is None else
+                                f"first differs at frame {where[0]} in "
+                                f"{where[1]}")
+                    + f", largest pose gap {gap[0] * 1e3:.3f} mm, "
+                    f"{gap[1]:.4f} deg")
+    print(f"[multistream] config 4, per-stream yardstick (one CUDA graph "
+          f"per stream): serial replays bit-equal to the side streams, "
+          f"streams 0 and {S - 1} bit-equal to their single-stream runs, the "
+          f"tracking and deferred gates hold; immediate {ms_side:.2f} ms per "
+          f"step on side streams = {S * 1e3 / ms_side:.1f} frames/s, serial "
+          f"{ms_serial:.2f} ms = {S * 1e3 / ms_serial:.1f} frames/s; device "
+          f"busy {busy_side:.1%} / {busy_serial:.1%}; one step of all {S} "
+          f"graphs {n_kern} kernels, {summed:.2f} ms summed kernel time; "
+          f"deferred {ms_p_side:.2f} ms per frame on side streams = "
+          f"{S * 1e3 / ms_p_side:.1f} frames/s (serial "
+          f"{res['serial'][2]:.2f} ms); peak device memory {peak_p:.3f} GB; "
+          f"describe launches {single} = {eager_p} eager + "
+          f"{pstep.streams.replays} step replays x {S} x {n_step} + "
+          f"{pscan.streams.replays} block replays x {S} x {n_block}; phase "
+          f"10's single stream {pace['ms_frame']:.2f} ms/frame; batched "
+          f"against per-stream, stream by stream: {'; '.join(same)}; {smi}",
+          flush=True)
+    ninl_rows = ninl_d.cpu().movedim(1, 0)
+    pninl_rows = pninl_d.cpu().movedim(1, 0)
+    return (single, batched), dict(
+        rgb=rgb, dep=dep, K=seq_K, gt=gt,
         immediate=_stream_digests(outs, final),
-        deferred=_stream_digests([(ninl_rows,)], st_d))
+        deferred=_stream_digests([(ninl_rows,)], st_d),
+        perstream_immediate=_stream_digests(outs_p, final_p),
+        perstream_deferred=_stream_digests([(pninl_rows,)], pst_d))
 
 
 class _CountedCull:
@@ -3514,16 +3720,20 @@ def _dist_global_ba(group, refs) -> dict:
 def _dist_streams(group, frames_dir, K, refs) -> dict:
     """(22b, one rank) Config 4's 8 streams, this rank's block of them:
     the immediate step over the 33 frames and the deferred scan from frame
-    0's warm start, each stream's digest against phase 19's, with the
-    pace and the describe launches of this rank."""
+    0's warm start, as one batched program (held to phase 19's tracking
+    and deferred gates, each stream's digest compared with phase 19's
+    batched run) and one graph per stream (each stream's digest equal to
+    phase 19's per-stream run), with the pace and the describe launches
+    of this rank."""
     from kbslam_torch import config
     from kbslam_torch.geom.camera import Intrinsics
     from kbslam_torch.ops import describe as describe_ops
     from kbslam_torch.parallel.multistream import (batched_init_state,
                                                    make_multistream_scan,
                                                    make_multistream_step,
+                                                   make_perstream_scan,
+                                                   make_perstream_step,
                                                    shard_streams)
-    from kbslam_torch.streaming import clone_state
 
     dev, S, T, K_apply = group.device, MS_STREAMS, MS_FRAMES, MS_K
 
@@ -3535,50 +3745,56 @@ def _dist_streams(group, frames_dir, K, refs) -> dict:
 
     rgb, dep = frames("rgb.npy"), frames("dep.npy")
     first, n = group.rank * (S // group.world), S // group.world
+    gt = refs["gt"][first:first + n]
     cfg, intr = config.SLAMConfig(), Intrinsics.from_matrix(K)
     group.reset_counts()
-    describe_ops.reset_launches()
-    step = make_multistream_step(cfg, intr, S, group=group)
-    state = shard_streams(batched_init_state(cfg, S, dev), group)
-    outs, ends = [], []
-    for t in range(T):
-        state, out = step(state, rgb[t], dep[t])
-        outs.append(out)
-        ends.append(torch.cuda.Event(enable_timing=True))
-        ends[-1].record()
-        if t == 0:
-            warm = clone_state(state)
-    torch.cuda.synchronize()
-    ms_step = ends[0].elapsed_time(ends[-1]) / (T - 1)
-    immediate = _stream_digests(outs, state, first)
-
-    scan = make_multistream_scan(cfg, intr, S, apply_every=K_apply,
-                                 group=group)
-    scan(clone_state(warm), rgb[1:], dep[1:])          # the captures
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    st_d, ninl = scan(clone_state(warm), rgb[1:], dep[1:])
-    end.record()
-    torch.cuda.synchronize()
-    ms_frame_d = start.elapsed_time(end) / (T - 1)
-    deferred = _stream_digests([(ninl.movedim(1, 0),)], st_d, first)
-    n_step = _replay_profile(step.streams._graphs[0])[3]
-    n_block = _replay_profile(scan.streams._graphs[0])[3]
-    if (n_step, n_block) != (1, K_apply):
-        raise AssertionError(f"describe kernels per graph: step {n_step}, "
-                             f"block {n_block} (expected 1, {K_apply})")
-    launches = (describe_ops.launches + step.streams.replays * n * n_step
-                + scan.streams.replays * n * n_block)
-    bad = [(i, what) for what, mine, ref in
-           (("immediate", immediate, refs["immediate"]),
-            ("deferred", deferred, refs["deferred"]))
-           for i, h in mine if dict(ref)[i] != h]
-    return dict(streams=list(range(first, first + n)), bad=bad,
-                collectives=group.collectives(), ms_step=ms_step,
-                ms_frame_deferred=ms_frame_d, launches=launches,
-                eager=describe_ops.launches,
-                replays=(step.streams.replays, scan.streams.replays))
+    out = dict(streams=list(range(first, first + n)), bad=[], launches={})
+    for kind, make_step, make_scan in (
+            ("batched", make_multistream_step, make_multistream_scan),
+            ("perstream", make_perstream_step, make_perstream_scan)):
+        describe_ops.reset_launches()
+        step = make_step(cfg, intr, S, group=group)
+        outs, final, warm, ms_step, _, _ = _timed_steps(
+            step, shard_streams(batched_init_state(cfg, S, dev), group), rgb,
+            dep)
+        scan = make_scan(cfg, intr, S, apply_every=K_apply, group=group)
+        _timed_scan(scan, warm, rgb[1:], dep[1:])          # the captures
+        st_d, ninl, ms_frame_d = _timed_scan(scan, warm, rgb[1:], dep[1:])
+        inl_min, kfs, ate = _tracking_gates(outs, final, gt, f"{kind} rank "
+                                            f"{group.rank}")
+        _deferred_gates(st_d.map.num_kf.cpu().numpy(), kfs,
+                        st_d.map.num_mp.cpu().numpy(), ninl.cpu().numpy(),
+                        torch.stack([o.num_inliers for o in outs[1:]]).cpu()
+                        .numpy(), f"{kind} rank {group.rank}")
+        immediate = _stream_digests(outs, final, first)
+        deferred = _stream_digests([(ninl.movedim(1, 0),)], st_d, first)
+        if kind == "batched":
+            n_step = _replay_profile(_graph_of(step.program))[3]
+            n_block = _replay_profile(_graph_of(scan.program))[3]
+            replays, per = (step.program.replays, scan.program.replays), 1
+        else:
+            n_step = _replay_profile(step.streams._graphs[0])[3]
+            n_block = _replay_profile(scan.streams._graphs[0])[3]
+            replays, per = (step.streams.replays, scan.streams.replays), n
+        if (n_step, n_block) != (1, K_apply):
+            raise AssertionError(f"{kind} describe kernels per graph: step "
+                                 f"{n_step}, block {n_block} (expected 1, "
+                                 f"{K_apply})")
+        differ = [(i, what) for what, mine, ref in
+                  (("immediate", immediate, refs[f"{kind}_immediate"]),
+                   ("deferred", deferred, refs[f"{kind}_deferred"]))
+                  for i, h in mine if dict(ref)[i] != h]
+        if kind == "perstream":
+            out["bad"] = differ
+        out[kind] = dict(
+            ms_step=ms_step, ms_frame_deferred=ms_frame_d, differ=differ,
+            inl_min=inl_min, ate=ate, eager=describe_ops.launches,
+            replays=replays,
+            launches=(describe_ops.launches + replays[0] * per * n_step
+                      + replays[1] * per * n_block))
+        del step, scan, outs, final, warm, st_d
+    out["collectives"] = group.collectives()
+    return out
 
 
 def _dist_fusion(group, kf) -> dict:
@@ -3659,13 +3875,14 @@ def _same_rows(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k], b[k]) for k in b)
 
 
-def distributed_phase(dev, smi, slam7, seq, gba_refs, stream_refs) -> int:
+def distributed_phase(dev, smi, slam7, seq, gba_refs, stream_refs) -> tuple:
     """(22) The multi-device paths over one NCCL rank per card of this
     machine (``parallel.dist.spawn``): config 5 camera- and landmark-
     sharded against phase 18's eager solve, ``SLAM.run_global_ba(group=)``
     against phase 18's, config 4's streams sharded against phase 19's
     digests, and a 512^3 volume fused in slabs against the unsharded
-    ``integrate``. Returns the describe launches of the ranks."""
+    ``integrate``. Returns the describe launches of the ranks
+    ((single-stream, batched))."""
     import tempfile
 
     from kbslam_torch.parallel import dist
@@ -3675,8 +3892,11 @@ def distributed_phase(dev, smi, slam7, seq, gba_refs, stream_refs) -> int:
     qt = [_pose_qt(slam7.frame_poses[f]) for f in kf_frames]
     refs = dict(
         gba=dict(K=seq.K, map_before=gba_refs["map_before"]),
-        streams=dict(K=stream_refs["K"], immediate=stream_refs["immediate"],
-                      deferred=stream_refs["deferred"]),
+        streams=dict(K=stream_refs["K"], gt=stream_refs["gt"],
+                     batched_immediate=stream_refs["immediate"],
+                     batched_deferred=stream_refs["deferred"],
+                     perstream_immediate=stream_refs["perstream_immediate"],
+                     perstream_deferred=stream_refs["perstream_deferred"]),
         fusion=dict(K=seq.K, depth=[seq.depth[f].astype(np.int32)
                                     for f in kf_frames],
                     q=[q for q, _ in qt], t=[t for _, t in qt]))
@@ -3777,22 +3997,40 @@ def distributed_phase(dev, smi, slam7, seq, gba_refs, stream_refs) -> int:
     st = [r["streams"] for r in runs]
     bad = [b for s in st for b in s["bad"]]
     if bad or any(s["collectives"] for s in st):
-        raise AssertionError(f"sharded streams != phase 19 (stream, run): "
-                             f"{bad}; collectives {[s['collectives'] for s in st]}")
-    launches = sum(s["launches"] for s in st)
-    fps = sum(len(s["streams"]) * 1e3 / s["ms_step"] for s in st)
-    fps_d = sum(len(s["streams"]) * 1e3 / s["ms_frame_deferred"] for s in st)
+        raise AssertionError(f"sharded per-stream graphs != phase 19 (stream, "
+                             f"run): {bad}; collectives "
+                             f"{[s['collectives'] for s in st]}")
+    launches = tuple(sum(s[k]["launches"] for s in st)
+                     for k in ("perstream", "batched"))
+
+    def pace(kind):
+        fps = sum(len(s["streams"]) * 1e3 / s[kind]["ms_step"] for s in st)
+        fps_d = sum(len(s["streams"]) * 1e3 / s[kind]["ms_frame_deferred"]
+                    for s in st)
+        return (f"immediate {fps:.1f} frames/s together (ms per step per "
+                f"rank {[round(s[kind]['ms_step'], 2) for s in st]}, CUDA "
+                f"events, steps 2-{MS_FRAMES}), deferred {fps_d:.1f} frames/s"
+                f" (ms per frame "
+                f"{[round(s[kind]['ms_frame_deferred'], 2) for s in st]}); "
+                f"describe launches {sum(s[kind]['launches'] for s in st)} "
+                f"({[s[kind]['eager'] for s in st]} eager, replays (step, "
+                f"block) {[s[kind]['replays'] for s in st]})")
+
+    differ = [d for s in st for d in s["batched"]["differ"]]
     print(f"[distributed] config 4: {MS_STREAMS} streams of 640x480, "
           f"{MS_FRAMES} frames, {MS_STREAMS // world} per rank "
-          f"({[s['streams'] for s in st]}): every stream's outputs and state "
-          f"bit-equal to phase 19's (SHA-256 of every row), immediate and "
-          f"deferred; 0 collectives while tracking; immediate "
-          f"{fps:.1f} frames/s together (ms per step per rank "
-          f"{[round(s['ms_step'], 2) for s in st]}, CUDA events, steps "
-          f"2-{MS_FRAMES}), deferred {fps_d:.1f} frames/s (ms per frame "
-          f"{[round(s['ms_frame_deferred'], 2) for s in st]}); describe "
-          f"launches {launches} ({[s['eager'] for s in st]} eager, replays "
-          f"(step, block) {[s['replays'] for s in st]}); {smi}", flush=True)
+          f"({[s['streams'] for s in st]}); 0 collectives while tracking; "
+          f"batched, one graph per step and per block on each rank: every "
+          f"stream tracked with >= {MIN_INLIERS} inliers after frame 0 (min "
+          f"{min(s['batched']['inl_min'] for s in st)}), ATE per stream "
+          f"{[round(a * 1e3, 2) for s in st for a in s['batched']['ate']]} "
+          f"mm, the deferred gates hold; against phase 19's batched run "
+          + ("every stream bit-equal (SHA-256 of every row), immediate and "
+             "deferred" if not differ else
+             f"(stream, run) differing: {differ}")
+          + f"; {pace('batched')}; per-stream graphs: every stream's outputs "
+          f"and state bit-equal to phase 19's per-stream run, immediate and "
+          f"deferred; {pace('perstream')}; {smi}", flush=True)
 
     # (c) the 512^3 volume in slabs
     fu = [r["fusion"] for r in runs]
@@ -4191,12 +4429,29 @@ def distributed_alone(dev, smi, name) -> int:
     return 0
 
 
+def multistream_alone(dev, smi, name) -> int:
+    """``--only multistream``: phase 4b and phase 19 after phases 1-2,
+    with the kernels line of the batched describe launch."""
+    fig = batched_describe_phase(dev, smi)
+    (_, batched), _ = multistream_phase(dev, smi, {"ms_frame": float("nan")})
+    assert_no_jax()
+    print(json.dumps({"kernels": [dict(
+        name="describe_keypoints (8 streams per launch)", route="cuda",
+        source="kbslam_torch/csrc/describe.cu",
+        replaces="kbslam/ops/pallas_patches.py:153", launches=batched,
+        library_ms=None, **fig)]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--only", "distributed"], ["--only", "gates"],
-                    ["--only", "shell"]):
-        print("usage: python3 chip_smoke.py [--only distributed|gates|shell]",
-              file=sys.stderr)
+                    ["--only", "shell"], ["--only", "multistream"]):
+        print("usage: python3 chip_smoke.py "
+              "[--only distributed|gates|shell|multistream]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4226,10 +4481,13 @@ def main(argv=None) -> int:
         return gates_alone(dev, smi, name)
     if argv == ["--only", "shell"]:
         return shell_alone(dev, smi, name)
+    if argv == ["--only", "multistream"]:
+        return multistream_alone(dev, smi, name)
     if argv:
         return distributed_alone(dev, smi, name)
 
     # 3. the patch kernel against its plain twin and the one-call yardstick
+    clock = [("3-4", time.perf_counter())]   # (phase, its start), in order
     cases = [(480, 640, 3072), (480, 640, 3071), (64, 96, 130)]
     for h, w, n in cases:
         args = patch_inputs(h, w, n, seed=n, dev=dev)
@@ -4321,7 +4579,9 @@ def main(argv=None) -> int:
           f"{table_bytes} of pair table, {n * 260} written), {d_flops} flop; "
           f"bound {d_bound * 1e3:.2f} us by {d_by}, kernel at "
           f"{d_bound / d_ms:.1%} of it", flush=True)
+    batched_fig = batched_describe_phase(dev, smi)
 
+    clock.append(("5-7", time.perf_counter()))
     # 5-7. the tracking slice, one full-width solve, the default path
     seq = synthetic.render_sequence(num_frames=FRAMES, height=480, width=640)
     slam5, launches = slice_phase(dev, seq, smi)
@@ -4332,12 +4592,15 @@ def main(argv=None) -> int:
         dev, seq, smi)
     launches = {k: launches[k] + launches_ba[k] for k in launches}
 
+    clock.append(("8", time.perf_counter()))
     # 8. asynchronous BA on a side stream
     async_phase(dev, seq, smi)
 
+    clock.append(("9", time.perf_counter()))
     # 9. the hard NK=3 scene of tests/test_ba_in_loop.py
     nk3_phase(dev, smi)
 
+    clock.append(("10-12", time.perf_counter()))
     # 10-12. the chunked streaming executor: one CUDA graph per chunk,
     # chunk-late async BA on a graphed solve, checkpoint and resume
     pace = {"slam_ba_ms": phase7_ms}
@@ -4346,40 +4609,55 @@ def main(argv=None) -> int:
     chunk_async_phase(dev, seq, smi)
     checkpoint_phase(dev, seq, chunked, smi)
 
+    clock.append(("13-15", time.perf_counter()))
     # 13-15. loop closure, relocalization and culling
     loop_phase(dev, smi)
     launches["describe_keypoints"] += reloc_phase(dev, smi)
     chunk_loop_phase(dev, smi, pace)
 
+    clock.append(("16", time.perf_counter()))
     # 16. the monolithic TSDF volume: integrate, raycast, the shells
     launches["describe_keypoints"] += dense_phase(dev, seq, smi, pace)
 
+    clock.append(("17", time.perf_counter()))
     # 17. the submap atlas and dense ICP
     launches["describe_keypoints"] += submap_phase(dev, seq, smi, pace)
 
+    clock.append(("18", time.perf_counter()))
     # 18. global BA at config 5, and on phase 7's map
     gba_refs = global_ba_phase(dev, smi, slam, seq, (ate, ate_ref))
 
+    clock.append(("19", time.perf_counter()))
     # 19. multistream tracking at config 4
-    ms_launches, stream_refs = multistream_phase(dev, smi, pace)
-    launches["describe_keypoints"] += ms_launches
+    (ms_single, ms_batched), stream_refs = multistream_phase(dev, smi, pace)
+    launches["describe_keypoints"] += ms_single
 
+    clock.append(("20", time.perf_counter()))
     # 20. tests/test_longrun.py on the card
     longrun_phase(dev, smi)
 
+    clock.append(("21", time.perf_counter()))
     # 21. the ingress and egress through both CLI paths; the end-to-end
     # gates
     launches["describe_keypoints"] += io_phase(dev, seq, smi, pace,
                                                slice_poses)
 
+    clock.append(("22", time.perf_counter()))
     # 22. the multi-device paths, one NCCL rank per card
-    launches["describe_keypoints"] += distributed_phase(
+    dist_single, dist_batched = distributed_phase(
         dev, smi, slam, seq, gba_refs, stream_refs)
+    launches["describe_keypoints"] += dist_single
 
+    clock.append(("23", time.perf_counter()))
     # 23. the dense reference solver; the reference's last tracking gates
     launches["describe_keypoints"] += gates_phase(dev, smi, window_slam)
 
+    clock.append(("end", time.perf_counter()))
     assert_no_jax()
+    print("[timing] host seconds per phase: " + ", ".join(
+        f"{name} {end - start:.1f}" for (name, start), (_, end) in
+        zip(clock[:-1], clock[1:])) + f"; phases 3-23 "
+        f"{clock[-1][1] - clock[0][1]:.1f}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": "describe_keypoints", "route": "cuda",
@@ -4388,6 +4666,11 @@ def main(argv=None) -> int:
          "launches": launches["describe_keypoints"], "max_abs_err": max_err,
          "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
          "bound_by": d_by, "library_ms": None},
+        dict(name="describe_keypoints (8 streams per launch)", route="cuda",
+             source="kbslam_torch/csrc/describe.cu",
+             replaces="kbslam/ops/pallas_patches.py:153",
+             launches=ms_batched + dist_batched, library_ms=None,
+             **batched_fig),
         {"name": "extract_patches", "route": "cuda",
          "source": "kbslam_torch/csrc/patches.cu",
          "replaces": "kbslam/ops/pallas_patches.py:153",

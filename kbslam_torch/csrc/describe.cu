@@ -11,6 +11,11 @@
 // patch is 6.4 KB of shared memory, so each keypoint reads its window
 // once, evaluates only its own bin's 256 tests, and writes 260 bytes.
 //
+// The pyramid may carry a leading stream axis, [S, L, H, W] with S x n
+// keypoints: block row blockIdx.y is stream s, which reads its own slab
+// stacked + s * L * H * W and its own n origins and outputs, so one
+// launch describes every stream (S = 1 is the single pyramid).
+//
 // For keypoint k with lv = clamp(level[k], 0, L-1),
 // y = clamp(y0[k], 0, H-40), x = clamp(x0[k], 0, W-40) (the start clamp
 // of jax.lax.dynamic_slice) and p = stacked[lv, y:y+40, x:x+40]:
@@ -42,7 +47,8 @@
 // copies are up to 10% wider than the patch, see below). The moments
 // are ~4 MFLOP. The stages it replaces wrote 19.7 MB of patches and ran
 // a 49.5 GFLOP float32 product, 29 of every 30 columns thrown away. At
-// this size the launch itself is expected to dominate.
+// this size the launch itself is expected to dominate. Eight streams in
+// one launch (config 4) read and write eight times as much, ~9.8 us.
 //
 // Design:
 // - One warp per keypoint, KEYPOINTS_PER_BLOCK = 4 warps per block: 768
@@ -125,6 +131,15 @@ describe_kernel(const float* __restrict__ stacked,
     const int lane = threadIdx.x & 31;
     const int k = blockIdx.x * KEYPOINTS_PER_BLOCK + warp;
     if (k >= n) return;      // no block-wide barrier follows
+
+    // this block's stream: its pyramid slab, origins and outputs
+    const size_t s = blockIdx.y;
+    stacked += s * L * H * W;
+    level += s * n;
+    y0 += s * n;
+    x0 += s * n;
+    angle_out += s * n;
+    bits_out += s * n * BITS;
 
     const int lv = min(max(level[k], 0), L - 1);
     const int y = min(max(y0[k], 0), H - S);
@@ -211,15 +226,18 @@ describe_kernel(const float* __restrict__ stacked,
 extern "C" {
 
 // Launches on `stream` (a cudaStream_t); returns cudaGetLastError().
+// `streams` pyramids of [L, H, W] one after another, n keypoints each.
 // Shapes, pointers, the 16-byte alignment of `stacked` and its row pitch
-// are validated by the Python wrapper (kbslam_torch/ops/describe.py).
+// (which keeps every stream's slab aligned too) are validated by the
+// Python wrapper (kbslam_torch/ops/describe.py).
 int kbslam_describe_keypoints(const float* stacked, const int* level,
                               const int* y0, const int* x0,
                               const short* pairs, float* angle,
-                              unsigned char* bits, int n, int L, int H, int W,
-                              int radius, void* stream) {
-    if (n > 0) {
-        const int blocks = (n + KEYPOINTS_PER_BLOCK - 1) / KEYPOINTS_PER_BLOCK;
+                              unsigned char* bits, int streams, int n, int L,
+                              int H, int W, int radius, void* stream) {
+    if (n > 0 && streams > 0) {
+        const dim3 blocks((n + KEYPOINTS_PER_BLOCK - 1) / KEYPOINTS_PER_BLOCK,
+                          streams);
         describe_kernel<<<blocks, THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
             stacked, level, y0, x0, pairs, angle,

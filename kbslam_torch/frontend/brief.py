@@ -97,18 +97,19 @@ def _ic_moment_vectors(radius: int, device: torch.device) -> torch.Tensor:
 
 def patch_origins(level_dims: torch.Tensor, xy: torch.Tensor,
                   level: torch.Tensor):
-    """(y0, x0) int32 [N]: the clamped top-left corner of each keypoint's
-    40x40 patch in its level. level_dims: [L, 2] int (h_l, w_l); xy:
-    [N, 2] level-coordinate keypoints; level: [N] int."""
+    """(y0, x0) int32 [..., N]: the clamped top-left corner of each
+    keypoint's 40x40 patch in its level. level_dims: [L, 2] int (h_l,
+    w_l); xy: [..., N, 2] level-coordinate keypoints; level: [..., N]
+    int."""
     base = torch.round(xy).to(torch.int32)
     hw = level_dims.to(torch.int32)[level.to(torch.int64)]
     # upper clamp floored at 0: a level smaller than the patch (tiny
     # frames, deep levels) would otherwise give a negative origin. Such
     # levels hold no valid keypoints (the 31-px border empties them).
-    x_hi = torch.clamp(hw[:, 1] - _PATCH_S, min=0)
-    y_hi = torch.clamp(hw[:, 0] - _PATCH_S, min=0)
-    x0 = torch.minimum(torch.clamp(base[:, 0] - _PATCH_R, min=0), x_hi)
-    y0 = torch.minimum(torch.clamp(base[:, 1] - _PATCH_R, min=0), y_hi)
+    x_hi = torch.clamp(hw[..., 1] - _PATCH_S, min=0)
+    y_hi = torch.clamp(hw[..., 0] - _PATCH_S, min=0)
+    x0 = torch.minimum(torch.clamp(base[..., 0] - _PATCH_R, min=0), x_hi)
+    y0 = torch.minimum(torch.clamp(base[..., 1] - _PATCH_R, min=0), y_hi)
     return y0.contiguous(), x0.contiguous()
 
 

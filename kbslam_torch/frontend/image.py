@@ -24,7 +24,7 @@ def _gray_weights(device: torch.device) -> torch.Tensor:
 
 
 def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
-    """[H, W, 3] uint8/float RGB -> [H, W] float32 BT.601 luma."""
+    """[..., H, W, 3] uint8/float RGB -> [..., H, W] float32 BT.601 luma."""
     return rgb.to(torch.float32) @ _gray_weights(rgb.device)
 
 
@@ -62,9 +62,12 @@ def _linear_weights_on(m: int, n: int, device: torch.device) -> torch.Tensor:
 
 
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize [H, W] -> shape, half-pixel centres, as the two
-    weight-matrix contractions ``jax.image.resize(method="linear",
-    antialias=False)`` performs."""
+    """Bilinear resize [..., H, W] -> [..., *shape], half-pixel centres,
+    as the two weight-matrix contractions ``jax.image.resize(method=
+    "linear", antialias=False)`` performs. With leading axes the second
+    product is one GEMM over every image's rows; on the CPU each image's
+    rows come out as its own product gives them
+    (tests/test_torch_multistream_batched.py)."""
     h, w = img.shape[-2:]
     out = img
     if shape[0] != h:
@@ -76,7 +79,8 @@ def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
 
 def build_pyramid(gray: torch.Tensor, num_levels: int,
                   scale: float) -> List[torch.Tensor]:
-    h, w = gray.shape
+    """Levels [..., h_l, w_l] of [..., H, W] images."""
+    h, w = gray.shape[-2:]
     sizes = pyramid_sizes(h, w, num_levels, scale)
     levels = [gray]
     for lv in range(1, num_levels):

@@ -6,6 +6,11 @@ offsets, IC orientation and rBRIEF from 40x40 patches — padded to
 ``max_features`` with a validity mask. The patches, angles and bits come
 from one fused kernel (``ops/describe.py``), which never writes the
 patches out.
+
+Every function also takes images with leading axes, [S, H, W] for the
+multistream step: the pyramid and the stencils act on all S at once,
+each stream sorts and gathers only its own candidates, and one describe
+launch covers all S x ``max_features`` keypoints.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ def _parabolic_offset(sm, s0, sp):
 
 
 class Features(NamedTuple):
-    """Padded keypoint set for one image (capacity = orb.max_features)."""
+    """Padded keypoint set for one image (capacity = orb.max_features),
+    or for S images with a leading axis on every field."""
 
     xy: torch.Tensor        # [F, 2] float32, level-0 pixel coords (x, y)
     response: torch.Tensor  # [F] float32 Harris response
@@ -78,13 +84,13 @@ def _nearest_index(m: int, n: int, device: torch.device) -> torch.Tensor:
 
 
 def resize_mask_nearest(mask: torch.Tensor, hl: int, wl: int) -> torch.Tensor:
-    """[H, W] mask -> [hl, wl] bool (nonzero = keep)."""
-    h, w = mask.shape
+    """[..., H, W] mask -> [..., hl, wl] bool (nonzero = keep)."""
+    h, w = mask.shape[-2:]
     out = mask
     if hl != h:
-        out = out[_nearest_index(h, hl, mask.device)]
+        out = out[..., _nearest_index(h, hl, mask.device), :]
     if wl != w:
-        out = out[:, _nearest_index(w, wl, mask.device)]
+        out = out[..., _nearest_index(w, wl, mask.device)]
     return out != 0
 
 
@@ -98,33 +104,36 @@ def _level_tables(sizes: tuple, scale_factor: float, device: torch.device):
 
 
 def topk_stable(values: torch.Tensor, k: int):
-    """(values, indices) of the k largest, ties to the lower index — the
-    order ``lax.top_k`` gives; ``torch.topk`` breaks ties otherwise."""
-    vals, idx = torch.sort(values, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index — the order ``lax.top_k`` gives; ``torch.topk`` breaks
+    ties otherwise."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def select_level(cand: torch.Tensor, harris: torch.Tensor, k: int):
-    """One level's k strongest candidates: (xy [k, 2] level coords with
-    subpixel offsets, valid [k], response [k]).
+    """One level's k strongest candidates: (xy [..., k, 2] level coords
+    with subpixel offsets, valid [..., k], response [..., k]) of
+    [..., hl, wl] maps, each image's own.
 
     The exact top-k (the reference's approx_max_k is exact on CPU). The
     subpixel offsets are parabola fits on the Harris response around the
     integer maximum, as dense maps with both axes packed into one value
     (quantized to 1/1024 px) — the reference's encoding, kept so the
     coordinates match it exactly."""
-    wl = cand.shape[1]
+    wl = cand.shape[-1]
     dxm = _parabolic_offset(shift2d(harris, 0, -1), harris,
                             shift2d(harris, 0, 1))
     dym = _parabolic_offset(shift2d(harris, -1, 0), harris,
                             shift2d(harris, 1, 0))
     enc = (torch.round((dxm + 0.5) * 1024.0) * 2048.0
            + torch.round((dym + 0.5) * 1024.0))
-    vals, idx = topk_stable(cand.reshape(-1), k)
+    flat = cand.shape[:-2] + (-1,)
+    vals, idx = topk_stable(cand.reshape(flat), k)
     valid = vals > _NEG * 0.5
     xi = idx % wl
     yi = idx // wl
-    e = enc[yi, xi]
+    e = torch.gather(enc.reshape(flat), -1, idx)
     dx_off = torch.floor(e / 2048.0) * (1.0 / 1024.0) - 0.5
     dy_off = torch.remainder(e, 2048.0) * (1.0 / 1024.0) - 0.5
     xy = torch.stack([xi.to(torch.float32) + dx_off,
@@ -134,9 +143,11 @@ def select_level(cand: torch.Tensor, harris: torch.Tensor, k: int):
 
 def detect_and_compute(gray: torch.Tensor, mask: Optional[torch.Tensor],
                        cfg) -> Features:
-    """[H, W] float32 grayscale (+ optional nonzero=keep mask) -> Features."""
+    """[..., H, W] float32 grayscale (+ optional nonzero=keep mask of
+    the same shape) -> Features with the same leading axes."""
     dev = gray.device
-    h, w = gray.shape
+    batch = tuple(gray.shape[:-2])
+    h, w = gray.shape[-2:]
     sizes = pyramid_sizes(h, w, cfg.num_levels, cfg.scale_factor)
     quotas = level_quotas(cfg)
     pyr = build_pyramid(gray, cfg.num_levels, cfg.scale_factor)
@@ -145,7 +156,7 @@ def detect_and_compute(gray: torch.Tensor, mask: Optional[torch.Tensor],
     xy_parts, val_parts, lvl_parts, resp_parts = [], [], [], []
     # the describe kernel copies rows in 16-byte pieces: the width is
     # padded to a multiple of 4 floats (zeros no patch reaches)
-    stacked_blur = torch.zeros((cfg.num_levels, h0, -(-w0 // 4) * 4),
+    stacked_blur = torch.zeros(batch + (cfg.num_levels, h0, -(-w0 // 4) * 4),
                                dtype=torch.float32, device=dev)
     for lv in range(cfg.num_levels):
         img = pyr[lv]
@@ -159,43 +170,45 @@ def detect_and_compute(gray: torch.Tensor, mask: Optional[torch.Tensor],
         k = quotas[lv]
         xy_l, valid, vals = select_level(cand, harris, k)
 
-        stacked_blur[lv, :hl, :wl] = gaussian_blur(img, cfg.blur_kernel,
-                                                   cfg.blur_sigma)
+        stacked_blur[..., lv, :hl, :wl] = gaussian_blur(img, cfg.blur_kernel,
+                                                        cfg.blur_sigma)
         xy_parts.append(xy_l)
         val_parts.append(valid)
         resp_parts.append(vals)
-        lvl_parts.append(torch.full((k,), lv, dtype=torch.int32, device=dev))
+        lvl_parts.append(torch.full(batch + (k,), lv, dtype=torch.int32,
+                                    device=dev))
 
-    xy_lvl = torch.cat(xy_parts, dim=0)              # level coords
-    levels = torch.cat(lvl_parts, dim=0)
-    valid = torch.cat(val_parts, dim=0)
-    resp = torch.cat(resp_parts, dim=0)
+    xy_lvl = torch.cat(xy_parts, dim=-2)             # level coords
+    levels = torch.cat(lvl_parts, dim=-1)
+    valid = torch.cat(val_parts, dim=-1)
+    resp = torch.cat(resp_parts, dim=-1)
 
     # pad the detection budget up to the static capacity
-    pad = cfg.max_features - xy_lvl.shape[0]
+    pad = cfg.max_features - xy_lvl.shape[-2]
     if pad > 0:
-        xy_lvl = torch.cat([xy_lvl, xy_lvl.new_zeros((pad, 2))])
-        levels = torch.cat([levels, levels.new_zeros((pad,))])
-        valid = torch.cat([valid, valid.new_zeros((pad,))])
-        resp = torch.cat([resp, resp.new_full((pad,), _NEG)])
+        xy_lvl = torch.cat([xy_lvl, xy_lvl.new_zeros(batch + (pad, 2))], -2)
+        levels = torch.cat([levels, levels.new_zeros(batch + (pad,))], -1)
+        valid = torch.cat([valid, valid.new_zeros(batch + (pad,))], -1)
+        resp = torch.cat([resp, resp.new_full(batch + (pad,), _NEG)], -1)
 
     # block-locality order: (level, 48-row block, 128-col block), stable.
     # It was chosen for the TPU kernel's block reuse; it is kept because
     # it fixes the feature order every later stage sees.
-    xi = torch.clamp(torch.round(xy_lvl[:, 0]).to(torch.int32), 0, w0 - 1)
-    yi = torch.clamp(torch.round(xy_lvl[:, 1]).to(torch.int32), 0, h0 - 1)
+    xi = torch.clamp(torch.round(xy_lvl[..., 0]).to(torch.int32), 0, w0 - 1)
+    yi = torch.clamp(torch.round(xy_lvl[..., 1]).to(torch.int32), 0, h0 - 1)
     sort_key = (levels * 32 + yi // 48) * 32 + xi // 128
-    order = torch.argsort(sort_key, stable=True)
-    tab = torch.cat([xy_lvl, resp[:, None], valid[:, None].to(torch.float32),
-                     levels[:, None].to(torch.float32)], dim=1)
-    tab_p = incidence_gather(order, tab)             # [F, 5], exact
-    xy_lvl = tab_p[:, :2]
-    resp = tab_p[:, 2]
-    valid = tab_p[:, 3] > 0.5
-    levels = tab_p[:, 4].to(torch.int32)
+    order = torch.argsort(sort_key, dim=-1, stable=True)
+    tab = torch.cat([xy_lvl, resp[..., None],
+                     valid[..., None].to(torch.float32),
+                     levels[..., None].to(torch.float32)], dim=-1)
+    tab_p = incidence_gather(order, tab)             # [..., F, 5], exact
+    xy_lvl = tab_p[..., :2]
+    resp = tab_p[..., 2]
+    valid = tab_p[..., 3] > 0.5
+    levels = tab_p[..., 4].to(torch.int32)
 
-    # one pass for all levels: each keypoint's 40x40 patch, its IC
-    # orientation and its rBRIEF bits
+    # one pass for all levels (and streams): each keypoint's 40x40
+    # patch, its IC orientation and its rBRIEF bits
     level_dims, level_scale = _level_tables(tuple(sizes), cfg.scale_factor,
                                             dev)
     y0, x0 = brief.patch_origins(level_dims, xy_lvl, levels)
@@ -203,11 +216,14 @@ def detect_and_compute(gray: torch.Tensor, mask: Optional[torch.Tensor],
                                      x0, radius=cfg.patch_size // 2)
 
     scales = level_scale[levels.to(torch.int64)]
-    return Features(xy=xy_lvl * scales[:, None], response=resp, angle=angle,
-                    level=levels, valid=valid, desc=desc)
+    return Features(xy=xy_lvl * scales[..., None], response=resp,
+                    angle=angle, level=levels, valid=valid, desc=desc)
 
 
-def extract(img: torch.Tensor, mask: Optional[torch.Tensor], cfg) -> Features:
-    """RGB uint8 [H, W, 3] (or grayscale [H, W]) -> Features."""
-    gray = rgb_to_gray(img) if img.ndim == 3 else img.to(torch.float32)
+def extract(img: torch.Tensor, mask: Optional[torch.Tensor], cfg,
+            batched: bool = False) -> Features:
+    """RGB uint8 [H, W, 3] (or grayscale [H, W]) -> Features; with
+    ``batched``, [S, H, W, 3] (or [S, H, W]) and Features over S."""
+    rgb = img.ndim == 3 + int(batched)
+    gray = rgb_to_gray(img) if rgb else img.to(torch.float32)
     return detect_and_compute(gray, mask, cfg)

@@ -17,6 +17,13 @@ the host to decide whether to write:
 The functions update the map's tensors in place and return the state:
 the reference's jitted step donates the old state's buffers
 (kbslam/pipeline.py:432), so no caller keeps using them.
+
+The ``*_batched`` functions do the same on S maps stacked on a leading
+stream axis (the multistream step), each stream with its own ring slot
+[S]: rows are read and written through flat offsets ``s * capacity +
+slot`` on the device (``index_select``/``index_copy_``), never a host
+index, and each stream scatters into its own spare row, its last lane
+winning.
 """
 from __future__ import annotations
 
@@ -48,14 +55,15 @@ class MapState(NamedTuple):
 
     @property
     def capacity_kf(self) -> int:
-        return self.kf_q.shape[0]
+        return self.kf_q.shape[-2]
 
     @property
     def capacity_mp(self) -> int:
-        return self.mp_pos.shape[0]
+        return self.mp_pos.shape[-2]
 
     def last_slot(self) -> torch.Tensor:
-        """Ring slot of the most recent keyframe (undefined if empty)."""
+        """Ring slot of the most recent keyframe (undefined if empty);
+        [S] for S stacked maps."""
         return torch.remainder(self.num_kf - 1, self.capacity_kf)
 
     def is_empty(self) -> torch.Tensor:
@@ -224,3 +232,121 @@ def window_slots(state: MapState, window: int):
     rel = torch.arange(-window, 0, dtype=torch.int32, device=n.device)
     ids = torch.clamp(rel + n, min=0)
     return torch.remainder(ids, state.capacity_kf), ids, (rel + n) >= 0
+
+
+# --- S maps stacked on a leading stream axis --------------------------------
+
+
+def _flat_rows(arr: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Row ``s * capacity + slot[s]`` of the flattened [S * capacity, ...]
+    ``arr`` for every stream s."""
+    S, cap = arr.shape[:2]
+    return (slot.to(torch.int64)
+            + torch.arange(S, device=slot.device) * cap)
+
+
+def take_rows(arr: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """[S, M, ...] and ring slots [S] -> each stream's row [S, ...], as a
+    copy (``take_row`` per stream, in one ``index_select``)."""
+    flat = arr.reshape((-1,) + arr.shape[2:])
+    return flat.index_select(0, _flat_rows(arr, slot))
+
+
+def _write_rows(arr: torch.Tensor, slot: torch.Tensor, row: torch.Tensor,
+                do: torch.Tensor) -> torch.Tensor:
+    """arr[s, slot[s]] = row[s] where do[s], in place (``_write_row``
+    per stream); ``arr`` must be contiguous."""
+    row = row.to(arr.dtype).expand(arr.shape[:1] + arr.shape[2:])
+    keep = do.reshape(do.shape + (1,) * (row.ndim - 1))
+    row = torch.where(keep, row, take_rows(arr, slot))
+    arr.view((-1,) + arr.shape[2:]).index_copy_(0, _flat_rows(arr, slot),
+                                                 row)
+    return arr
+
+
+def scatter_rows_batched(arr: torch.Tensor, target: torch.Tensor,
+                         active: torch.Tensor,
+                         values: torch.Tensor) -> torch.Tensor:
+    """``scatter_rows`` per stream: arr [S, P, ...], target and active
+    [S, F], values [S, F, ...]; each stream's last active lane wins on a
+    target of its own, and its other lanes go to its own spare row.
+    Returns a new tensor."""
+    S, size = arr.shape[:2]
+    first = torch.arange(S, device=target.device)[:, None] * (size + 1)
+    tgt = torch.where(active, target.to(torch.int64), size) + first
+    lanes = torch.arange(tgt.numel(), device=target.device).reshape(
+        tgt.shape)
+    last = torch.full((S * (size + 1),), -1, dtype=torch.int64,
+                      device=target.device)
+    last.scatter_reduce_(0, tgt.reshape(-1), lanes.reshape(-1),
+                         reduce="amax")
+    idx = torch.where(active & (last[tgt] == lanes), tgt, first + size)
+    rest = arr.shape[2:]
+    buf = torch.cat([arr, arr.new_zeros((S, 1) + rest)], dim=1)
+    buf.view((-1,) + rest).index_put_(
+        (idx.reshape(-1),),
+        values.to(arr.dtype).expand(tgt.shape + rest).reshape((-1,) + rest))
+    return buf[:, :size]
+
+
+def insert_keyframe_batched(state: MapState, feats, depth_at_kp: torch.Tensor,
+                            pose: SE3, do: torch.Tensor) -> MapState:
+    """``insert_keyframe`` on S stacked maps: stream s writes its frame
+    into its next ring slot where do[s]."""
+    slot = torch.remainder(state.num_kf, state.capacity_kf)
+    no_mp = torch.full_like(state.kf_mp[:, 0], NO_MP)
+    return state._replace(
+        kf_q=_write_rows(state.kf_q, slot, pose.q, do),
+        kf_t=_write_rows(state.kf_t, slot, pose.t, do),
+        kf_kp_xy=_write_rows(state.kf_kp_xy, slot, feats.xy, do),
+        kf_kp_depth=_write_rows(state.kf_kp_depth, slot, depth_at_kp, do),
+        kf_desc=_write_rows(state.kf_desc, slot, feats.desc, do),
+        kf_kp_valid=_write_rows(state.kf_kp_valid, slot, feats.valid, do),
+        kf_mp=_write_rows(state.kf_mp, slot, no_mp, do),
+        kf_id=_write_rows(state.kf_id, slot, state.num_kf, do),
+        num_kf=state.num_kf + do.to(state.num_kf.dtype),
+    )
+
+
+def create_map_points_batched(state: MapState, match, intr_fx, intr_fy,
+                              intr_cx, intr_cy,
+                              do: torch.Tensor) -> MapState:
+    """``create_map_points`` on S stacked maps, each stream between its
+    previous and its just-inserted keyframe, where do[s]."""
+    m = state.capacity_kf
+    prev_slot = torch.remainder(state.num_kf - 2, m)
+    curr_slot = torch.remainder(state.num_kf - 1, m)
+    matched = match.is_match & do[:, None]
+    P = state.capacity_mp
+
+    prev_mp = take_rows(state.kf_mp, prev_slot)               # [S, F]
+    prev_live = (prev_mp >= 0) & (prev_mp >= (state.num_mp - P)[:, None])
+    needs_new = matched & ~prev_live
+
+    offset = torch.cumsum(needs_new.to(torch.int32), dim=-1) - 1
+    new_id = (state.num_mp[:, None] + offset).to(torch.int32)
+    n_new = torch.sum(needs_new, dim=-1, dtype=torch.int32)
+
+    xy = take_rows(state.kf_kp_xy, prev_slot)
+    z = take_rows(state.kf_kp_depth, prev_slot)
+    x = (xy[..., 0] - intr_cx) * z / intr_fx
+    y = (xy[..., 1] - intr_cy) * z / intr_fy
+    prev_pose = SE3(take_rows(state.kf_q, prev_slot)[:, None],
+                    take_rows(state.kf_t, prev_slot)[:, None])
+    p_world = prev_pose.apply(torch.stack([x, y, z], dim=-1))  # [S, F, 3]
+
+    mp_slot = torch.remainder(new_id, P)
+    mp_pos = scatter_rows_batched(state.mp_pos, mp_slot, needs_new, p_world)
+    mp_valid = scatter_rows_batched(state.mp_valid, mp_slot, needs_new,
+                                    torch.ones_like(needs_new))
+
+    no_mp = torch.full_like(prev_mp, NO_MP)
+    prev_mp_new = torch.where(needs_new, new_id,
+                              torch.where(prev_live, prev_mp, no_mp))
+    curr_mp_new = scatter_rows_batched(take_rows(state.kf_mp, curr_slot),
+                                       match.best_idx, matched, prev_mp_new)
+
+    kf_mp = _write_rows(state.kf_mp, prev_slot, prev_mp_new, do)
+    kf_mp = _write_rows(kf_mp, curr_slot, curr_mp_new, do)
+    return state._replace(kf_mp=kf_mp, mp_pos=mp_pos, mp_valid=mp_valid,
+                          num_mp=state.num_mp + n_new)

@@ -80,7 +80,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kbslam_extract_patches.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.kbslam_extract_patches.restype = i
     lib.kbslam_describe_keypoints.argtypes = [p, p, p, p, p, p, p,
-                                              i, i, i, i, i, p]
+                                              i, i, i, i, i, i, p]
     lib.kbslam_describe_keypoints.restype = i
     lib.kbslam_cuda_error_string.argtypes = [i]
     lib.kbslam_cuda_error_string.restype = ctypes.c_char_p

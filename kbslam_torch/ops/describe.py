@@ -19,6 +19,12 @@ clamped patch origin ``(level[n], y0[n], x0[n])`` it returns
   ``brief.bits_from_patches``, which the tests hold against the JAX
   package.
 
+The pyramid may carry a leading stream axis: ``[S, L, H, W]`` with
+``[S, N]`` origins gives ``[S, N]`` angles and ``[S, N, 256]`` bits, all
+from one launch (the multistream step describes its S frames so, as the
+reference's ``vmap`` batches its ``pallas_call``); ``[L, H, W]`` is the
+case S = 1.
+
 ``launches`` counts the kernel launches made through
 ``describe_keypoints``; a call made while a CUDA graph is captured
 launches nothing and is not counted (a replay runs no Python).
@@ -46,8 +52,15 @@ def reset_launches() -> None:
 def describe_keypoints_reference(stacked: torch.Tensor, level: torch.Tensor,
                                  y0: torch.Tensor, x0: torch.Tensor,
                                  radius: int = 15):
-    """Plain torch twin of the kernel: (angle [N] float32, bits [N, 256]
-    uint8)."""
+    """Plain torch twin of the kernel: (angle [..., N] float32, bits
+    [..., N, 256] uint8). A [S, L, H, W] pyramid is described stream by
+    stream (the CPU's vectorized atan2 rounds otherwise in a vector's
+    tail, so a stream's angles would depend on its neighbours')."""
+    if stacked.ndim == 4:
+        parts = [describe_keypoints_reference(p, lv, y, x, radius)
+                 for p, lv, y, x in zip(stacked, level, y0, x0)]
+        return (torch.stack([a for a, _ in parts]),
+                torch.stack([b for _, b in parts]))
     n = level.shape[0]
     patches = patch_ops.extract_patches_reference(
         stacked, level, y0, x0, PATCH_SIZE).reshape(n, PATCH_SIZE ** 2)
@@ -77,34 +90,60 @@ def _pair_table_on(device: torch.device) -> torch.Tensor:
 
 
 def _check(stacked, level, y0, x0):
-    patch_ops._check(stacked, level, y0, x0, PATCH_SIZE)
-    # the kernel's bulk row copies start and end on 16-byte boundaries
-    if stacked.shape[2] % 4 or stacked.data_ptr() % 16:
+    """Validates a [L, H, W] call or a [S, L, H, W] one (each stream's
+    origins a row of [S, N])."""
+    if stacked.ndim == 4:
+        S = stacked.shape[0]
+        for name, t in (("level", level), ("y0", y0), ("x0", x0)):
+            if t.ndim != 2 or t.shape[0] != S:
+                raise ValueError(f"{name} must be [{S}, N] for a pyramid of "
+                                 f"{S} streams, got {tuple(t.shape)}")
+        if not stacked.is_contiguous():
+            raise ValueError("stacked must be contiguous")
+        patch_ops._check(stacked[0], level[0], y0[0], x0[0], PATCH_SIZE)
+        if (level.shape != y0.shape or level.shape != x0.shape
+                or not (level.is_contiguous() and y0.is_contiguous()
+                        and x0.is_contiguous())):
+            raise ValueError("level, y0 and x0 must be contiguous and of "
+                             "one shape")
+        if stacked.numel() >= 2 ** 31 or level.numel() * 256 >= 2 ** 31:
+            raise ValueError("describe_keypoints: too large for the kernel")
+    else:
+        patch_ops._check(stacked, level, y0, x0, PATCH_SIZE)
+    # the kernel's bulk row copies start and end on 16-byte boundaries;
+    # with W a multiple of 4 floats, every level and every stream's slab
+    # starts on one too
+    if stacked.shape[-1] % 4 or stacked.data_ptr() % 16:
         raise ValueError(f"describe_keypoints: the pyramid needs a width "
-                         f"that is a multiple of 4 (got {stacked.shape[2]}) "
+                         f"that is a multiple of 4 (got {stacked.shape[-1]}) "
                          f"and a 16-byte aligned start")
 
 
 def describe_keypoints(stacked: torch.Tensor, level: torch.Tensor,
                        y0: torch.Tensor, x0: torch.Tensor, radius: int = 15):
     """[L, H, W] float32 pyramid, int32 [N] level/y0/x0 -> (angle [N]
-    float32, bits [N, 256] uint8 in {0, 1})."""
+    float32, bits [N, 256] uint8 in {0, 1}); or [S, L, H, W] and [S, N]
+    -> [S, N] and [S, N, 256], in one launch."""
     global launches
     if stacked.device.type == "cpu":
         return describe_keypoints_reference(stacked, level, y0, x0, radius)
     if stacked.device.type != "cuda":
         raise ValueError(f"describe_keypoints: unsupported device "
                          f"{stacked.device}")
+    if stacked.ndim not in (3, 4):
+        raise ValueError(f"describe_keypoints: stacked must be [L, H, W] or "
+                         f"[S, L, H, W], got {tuple(stacked.shape)}")
     _check(stacked, level, y0, x0)
     from kbslam_torch.ops._build import build
 
     lib = build().lib
-    L, H, W = stacked.shape
-    n = level.shape[0]
+    streams = stacked.shape[0] if stacked.ndim == 4 else 1
+    L, H, W = stacked.shape[-3:]
+    n = level.shape[-1]
     dev = stacked.device
-    angle = torch.empty((n,), dtype=torch.float32, device=dev)
-    bits = torch.empty((n, 256), dtype=torch.uint8, device=dev)
-    if n == 0:
+    angle = torch.empty(level.shape, dtype=torch.float32, device=dev)
+    bits = torch.empty(level.shape + (256,), dtype=torch.uint8, device=dev)
+    if n == 0 or streams == 0:
         return angle, bits
     table = _pair_table_on(dev)
     with torch.cuda.device(dev):
@@ -112,7 +151,7 @@ def describe_keypoints(stacked: torch.Tensor, level: torch.Tensor,
         err = lib.kbslam_describe_keypoints(
             stacked.data_ptr(), level.data_ptr(), y0.data_ptr(),
             x0.data_ptr(), table.data_ptr(), angle.data_ptr(),
-            bits.data_ptr(), n, L, H, W, int(radius), stream)
+            bits.data_ptr(), streams, n, L, H, W, int(radius), stream)
     if err != 0:
         msg = lib.kbslam_cuda_error_string(err).decode()
         raise RuntimeError(f"describe_keypoints kernel launch failed: {msg}")

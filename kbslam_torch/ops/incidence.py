@@ -24,11 +24,22 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
 def incidence_gather(ids: torch.Tensor, table: torch.Tensor,
                      exact: bool = True) -> torch.Tensor:
     """out[i] = table[ids[i]] as float32 [O, C]; out-of-range ids give
-    zero rows."""
-    T = table.shape[0]
+    zero rows. With a leading stream axis, ids [S, O] into tables
+    [S, T, C] give [S, O, C], each stream reading its own table and its
+    own zero row (one ``index_select`` over the flattened tables)."""
     values = table.to(torch.float32)
     if not exact:
         values = _bf16_round(values)
+    if ids.ndim == 2:
+        S, T = values.shape[:2]
+        padded = torch.cat(
+            [values, values.new_zeros((S, 1) + values.shape[2:])], dim=1)
+        first = torch.arange(S, device=ids.device)[:, None] * (T + 1)
+        safe = torch.where((ids >= 0) & (ids < T), ids, T) + first
+        out = padded.reshape((-1,) + padded.shape[2:]).index_select(
+            0, safe.reshape(-1))
+        return out.reshape(ids.shape + padded.shape[2:])
+    T = values.shape[0]
     padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
     safe = torch.where((ids >= 0) & (ids < T), ids, T)
     return padded.index_select(0, safe)

@@ -14,6 +14,11 @@ set_size, packed)`` and returns ``(idx_dlt [k_dlt, set_size],
 idx_kabsch [k_kabsch, set_size] or None)``: DLT sets among ``valid``
 (packed: valid entries are known to come first), Kabsch sets among
 ``pool`` (None when there is no current-frame depth).
+
+``ransac_pnp_batched`` runs S streams' problems at once, each with a
+leading stream axis; its sampler returns [S, k, set_size] sets, each
+stream's drawn among its own entries (``hash_sampler`` with a counter
+per stream does so).
 """
 from __future__ import annotations
 
@@ -56,7 +61,8 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 def hash_bits(seed: int, frame_count: torch.Tensor,
               lanes: torch.Tensor) -> torch.Tensor:
     """UNIFORM_BITS uniform bits per lane (int64): a function of (seed,
-    frame_count, lane) alone, equal on every device."""
+    frame_count, lane) alone, equal on every device. ``frame_count``
+    broadcasts against ``lanes``."""
     # the offsets keep a zero seed, frame or lane from hashing to zero
     seed_key = _mix32(torch.full_like(lanes, (seed + 0x9E3779B9) & _MASK32))
     key = _mix32(seed_key
@@ -75,29 +81,36 @@ def draw_valid_indices(bits: torch.Tensor, valid: torch.Tensor,
     ``torch.randint`` would need n_valid on the host, a sync every
     frame. packed=True means the valid entries come first, so a rank is
     an index; otherwise the rank maps to the (rank+1)-th valid entry by
-    the prefix count."""
-    n_valid = torch.clamp(torch.sum(valid.to(torch.int64)), min=1)
+    the prefix count. With a leading stream axis, bits [S, k, n] draw
+    among valid [S, N], each stream among its own entries."""
+    lead = valid.shape[:-1]
+    n_valid = torch.clamp(torch.sum(valid.to(torch.int64), dim=-1), min=1)
+    n_valid = n_valid[..., None, None]
     rank = torch.minimum((bits * n_valid) >> UNIFORM_BITS, n_valid - 1)
     if packed:
         return rank
-    cnt = torch.cumsum(valid.to(torch.int64), dim=0)
-    eq = (cnt[None, :] == (rank.reshape(-1, 1) + 1)) & valid[None, :]
-    return torch.argmax(eq.to(torch.uint8), dim=1).reshape(rank.shape)
+    cnt = torch.cumsum(valid.to(torch.int64), dim=-1)
+    eq = ((cnt[..., None, :] == (rank.reshape(lead + (-1, 1)) + 1))
+          & valid[..., None, :])
+    return torch.argmax(eq.to(torch.uint8), dim=-1).reshape(rank.shape)
 
 
 def hash_sampler(seed: int, frame_count: torch.Tensor) -> Sampler:
     """The default sampler of the frame ``frame_count`` (a 0-d int32
     device tensor): DLT sets on lanes [0, k_dlt * S), Kabsch sets on the
-    lanes after them."""
+    lanes after them. A counter [S] (one per stream) gives the batched
+    sampler of ``ransac_pnp_batched``: stream i's sets are those of
+    ``hash_sampler(seed, frame_count[i])``."""
     def sample(valid, pool, k_dlt, k_kabsch, set_size, packed):
         n_d, n_k = k_dlt * set_size, k_kabsch * set_size
         lanes = torch.arange(n_d + n_k, dtype=torch.int64,
                              device=valid.device)
-        bits = hash_bits(seed, frame_count, lanes)
-        idx_d = draw_valid_indices(bits[:n_d].reshape(k_dlt, set_size),
-                                   valid, packed)
+        lead = tuple(frame_count.shape)
+        bits = hash_bits(seed, frame_count.reshape(lead + (1,)), lanes)
+        idx_d = draw_valid_indices(
+            bits[..., :n_d].reshape(lead + (k_dlt, set_size)), valid, packed)
         idx_k = (None if pool is None else draw_valid_indices(
-            bits[n_d:].reshape(k_kabsch, set_size), pool))
+            bits[..., n_d:].reshape(lead + (k_kabsch, set_size)), pool))
         return idx_d, idx_k
     return sample
 
@@ -180,5 +193,114 @@ def ransac_pnp(points3d: torch.Tensor, uv_obs: torch.Tensor,
     identity = SE3.identity(dtype=T.t.dtype, device=T.t.device)
     T_safe = SE3(torch.where(ok, T.q, identity.q),
                  torch.where(ok, T.t, identity.t))
+    return PnPResult(ok, T_safe, torch.where(ok, ratio, 0.0), final_inliers,
+                     num_inliers)
+
+
+def _hypotheses(rows: torch.Tensor, K_dlt: int, intr: Intrinsics,
+                cfg) -> SE3:
+    """The polished hypotheses [B, K] of B problems' minimal-set rows
+    [B, K, S, 8] (points, pixels, current-frame points): DLT on the first
+    ``K_dlt`` sets, Kabsch on the rest, every one polished by GN on its
+    own set, all B x K as one batch."""
+    B, K, S = rows.shape[:3]
+    rows_d = rows[:, :K_dlt].reshape(B * K_dlt, S, -1)
+    rows_k = rows[:, K_dlt:].reshape(B * (K - K_dlt), S, -1)
+    R_d, t_d = solve_dlt(rows_d[..., :3], normalized_rays(intr,
+                                                          rows_d[..., 3:5]))
+    R_k, t_k = solve_kabsch(rows_k[..., :3], rows_k[..., 5:8])
+    R = torch.cat([R_d.reshape(B, K_dlt, 3, 3),
+                   R_k.reshape(B, K - K_dlt, 3, 3)], dim=1)
+    t = torch.cat([t_d.reshape(B, K_dlt, 3),
+                   t_k.reshape(B, K - K_dlt, 3)], dim=1)
+    T_init = SE3(matrix_to_quat(R.reshape(-1, 3, 3)),
+                 t.reshape(-1, 3)).normalize()
+    flat = rows.reshape(B * K, S, -1)
+    ones_s = torch.ones(S, dtype=rows.dtype, device=rows.device)
+    T_h = refine_pose(T_init, flat[..., :3], flat[..., 3:5], ones_s, intr,
+                      iters=cfg.polish_iters)
+    return SE3(T_h.q.reshape(B, K, 4), T_h.t.reshape(B, K, 3))
+
+
+def ransac_pnp_batched(points3d: torch.Tensor, uv_obs: torch.Tensor,
+                       valid: torch.Tensor, intr: Intrinsics, cfg,
+                       sampler: Sampler, points3d_obs: torch.Tensor,
+                       obs_valid: torch.Tensor,
+                       valid_packed: bool = False) -> PnPResult:
+    """``ransac_pnp`` (with current-frame depth, valid entries packed
+    first, as the step's top-M compaction leaves them) for S streams at
+    once: points3d [S, N, 3], uv_obs [S, N, 2], valid [S, N], and the
+    depth terms likewise -> a PnPResult with a leading S on every field.
+
+    On CUDA the S x K hypotheses are solved and polished as one batch
+    of S * K; scoring, the winner (the first maximum) and the final
+    polish are per stream. On the CPU every stream's result equals
+    ``ransac_pnp`` on its own problem bit for bit, for S under 16 (the
+    S final poses are one batch, whose pow, sin and cos stay in the
+    vector's scalar tail only while S is under the CPU's vector width)."""
+    S_n, N = valid.shape
+    K = cfg.num_hypotheses
+    S = cfg.sample_size
+    n_valid = torch.sum(valid.to(torch.int32), dim=-1)
+
+    K_dlt = max(int(K * cfg.dlt_fraction), 1)
+    both = valid & obs_valid
+    # sample `valid` when depth is missing everywhere in the stream
+    pool = torch.where(torch.any(both, dim=-1, keepdim=True), both, valid)
+    idx_d, idx_k = sampler(valid, pool, K_dlt, K - K_dlt, S, True)
+    idx = torch.cat([idx_d.to(torch.int64), idx_k.to(torch.int64)], dim=1)
+    tab = torch.cat([points3d, uv_obs, points3d_obs], dim=-1)
+
+    rows = incidence_gather(idx.reshape(S_n, -1), tab).reshape(S_n, K, S, -1)
+    if rows.device.type == "cpu":
+        # the CPU's vectorized pow, sin and cos round otherwise in a
+        # vector's body than in its tail, so a batch of S x K would give a
+        # stream's hypotheses other bits than its own batch of K: each
+        # stream is solved in the batch ``ransac_pnp`` solves
+        parts = [_hypotheses(rows[i:i + 1], K_dlt, intr, cfg)
+                 for i in range(S_n)]
+        T_h = SE3(torch.cat([p.q for p in parts]),
+                  torch.cat([p.t for p in parts]))
+    else:
+        T_h = _hypotheses(rows, K_dlt, intr, cfg)
+
+    # score every hypothesis against its stream's correspondences
+    Rh = T_h.rotation_matrix()
+    pc = (torch.einsum("skij,snj->skni", Rh, points3d)
+          + T_h.t[:, :, None, :])
+    uv_proj, z = project(intr, pc)
+    err2 = torch.sum((uv_proj - uv_obs[:, None]) ** 2, dim=-1)
+    thr2 = cfg.reproj_threshold * cfg.reproj_threshold
+    inlier = (err2 < thr2) & (z > 0) & valid[:, None, :]
+    finite = (torch.all(torch.isfinite(T_h.q), dim=-1)
+              & torch.all(torch.isfinite(T_h.t), dim=-1))
+    counts = torch.where(finite, torch.sum(inlier, dim=-1), 0)
+    # each stream's first maximum, gathered on the device
+    best = torch.argmax(counts, dim=-1)                  # [S_n]
+    pick = torch.arange(S_n, device=best.device) * K + best
+    T0 = SE3(T_h.q.reshape(-1, 4).index_select(0, pick),
+             T_h.t.reshape(-1, 3).index_select(0, pick)).normalize()
+    w0 = inlier.reshape(S_n * K, N).index_select(0, pick)
+
+    # polish on the inlier set, then on its sub-2px subset
+    T = refine_pose_two_stage(T0, points3d, uv_obs, w0.to(torch.float32),
+                              valid, intr, iters=cfg.refine_iters,
+                              wide_thr2=thr2)
+
+    # recount with the polished pose (8 px gate for the ratio)
+    uv_fin, z_fin = project(intr, SE3(T.q[:, None], T.t[:, None]).apply(
+        points3d))
+    err2_fin = torch.sum((uv_fin - uv_obs) ** 2, dim=-1)
+    final_inliers = (err2_fin < thr2) & (z_fin > 0) & valid
+    num_inliers = torch.sum(final_inliers, dim=-1)
+
+    ok = ((num_inliers >= cfg.min_inliers) & (n_valid >= cfg.min_points)
+          & torch.all(torch.isfinite(T.q), dim=-1)
+          & torch.all(torch.isfinite(T.t), dim=-1))
+    ratio = num_inliers.to(torch.float32) / torch.clamp(
+        n_valid.to(torch.float32), min=1.0)
+    identity = SE3.identity(dtype=T.t.dtype, device=T.t.device)
+    T_safe = SE3(torch.where(ok[:, None], T.q, identity.q),
+                 torch.where(ok[:, None], T.t, identity.t))
     return PnPResult(ok, T_safe, torch.where(ok, ratio, 0.0), final_inliers,
                      num_inliers)

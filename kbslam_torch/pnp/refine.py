@@ -77,15 +77,21 @@ def pose_jacobian(pc: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
     return J_proj @ J_pc
 
 
-def _gn_update(T: SE3, r, z, pc, w, intr, damping):
+def _gn_update(T: SE3, r, z, pc, w, intr, damping, per_row: bool = False):
     """One damped GN step on weights w [..., N]; keeps T where the step
-    is not finite."""
+    is not finite. ``per_row`` takes the gradient of each pose of a
+    [S] batch in its own product, the one the unbatched pose takes (a
+    batched one adds in another order on the CPU)."""
     ww = w * (z > 1e-6)
     J = pose_jacobian(pc, intr)
     Jw = J * ww[..., None, None]
     eye = torch.eye(6, dtype=T.t.dtype, device=T.t.device)
     H = torch.einsum("...nij,...nik->...jk", Jw, J) + damping * eye
-    g = torch.einsum("...nij,...ni->...j", Jw, r)
+    if per_row:
+        g = torch.stack([torch.einsum("nij,ni->j", a, b)
+                         for a, b in zip(Jw, r)])
+    else:
+        g = torch.einsum("...nij,...ni->...j", Jw, r)
     delta = -chol_solve6(H, g)
     T_new = SE3.exp(delta).compose(T).normalize()
     ok = torch.all(torch.isfinite(delta), dim=-1, keepdim=True)
@@ -112,16 +118,18 @@ def refine_pose_two_stage(T_init: SE3, points3d: torch.Tensor,
     """``iters`` GN iterations on w_stage1 (the RANSAC inlier mask), then
     ``iters`` more on the sub-``tight_thr2`` subset of the residuals at
     the stage boundary (the wide gate when fewer than ``min_tight``
-    survive)."""
+    survive). A batch of S poses ([S, 4], points [S, N, 3]) refines
+    each stream on its own correspondences."""
     T = T_init
     w = w_stage1
+    per_row = T_init.q.ndim == 2
     for i in range(2 * iters):
         r, z, pc = reprojection_residuals(T, points3d, uv_obs, intr)
         if i == iters:
             err2 = torch.sum(r * r, dim=-1)
             tight = (err2 < tight_thr2) & (z > 0) & valid
             wide = (err2 < wide_thr2) & (z > 0) & valid
-            w = torch.where(torch.sum(tight) >= min_tight, tight,
-                            wide).to(w_stage1.dtype)
-        T = _gn_update(T, r, z, pc, w, intr, damping)
+            enough = torch.sum(tight, dim=-1, keepdim=True) >= min_tight
+            w = torch.where(enough, tight, wide).to(w_stage1.dtype)
+        T = _gn_update(T, r, z, pc, w, intr, damping, per_row)
     return T

@@ -471,10 +471,11 @@ def test_global_ba_on_the_card_graphed_and_against_the_cpu(cuda_device):
 
 
 def test_multistream_side_streams_serial_and_single_agree(cuda_device):
-    """Two tiny streams: the side-stream replays, the serial replays and
-    each stream's own eager steps (the same draws) agree bit for bit."""
+    """Two tiny streams through the per-stream yardstick: the side-stream
+    replays, the serial replays and each stream's own eager steps (the
+    same draws) agree bit for bit."""
     from kbslam_torch.parallel.multistream import (batched_init_state,
-                                                   make_multistream_step)
+                                                   make_perstream_step)
     from kbslam_torch.pipeline import track_step
 
     S, T = 2, 4
@@ -487,7 +488,7 @@ def test_multistream_side_streams_serial_and_single_agree(cuda_device):
     dep = torch.from_numpy(np.stack([np.stack([s.depth[t] for s in seqs])
                                      for t in range(T)]).astype(np.int32)
                            ).to(cuda_device)
-    step = make_multistream_step(cfg, intr, S)
+    step = make_perstream_step(cfg, intr, S)
     runs = []
     for serial in (False, True):
         state, outs = batched_init_state(cfg, S, cuda_device), []
@@ -503,6 +504,79 @@ def test_multistream_side_streams_serial_and_single_agree(cuda_device):
             st, o = track_step(st, rgb[t, i], dep[t, i], None, intr, cfg,
                                hash_sampler(0, st.frame_count * S + i))
             assert all(torch.equal(x, y[i]) for x, y in zip(o, runs[0][t]))
+
+
+@pytest.mark.parametrize("n", [3072, 3071, 1])
+def test_batched_describe_launch_equals_single_launches(cuda_device, n):
+    """Three pyramids in one launch: each stream bit-equal to its own
+    launch, phase 4's gates against the twin, one launch counted; a
+    batch the kernel cannot take raises and launches nothing."""
+    parts = [_inputs(480, 640, n, cuda_device, seed=n + i) for i in range(3)]
+    args = [torch.stack(x).contiguous() for x in zip(*parts)]
+    before = tdescribe.launches
+    angle, bits = tdescribe.describe_keypoints(*args)
+    torch.cuda.synchronize()
+    assert tdescribe.launches == before + 1
+    assert angle.shape == (3, n) and bits.shape == (3, n, 256)
+    for i, p in enumerate(parts):
+        a, b = tdescribe.describe_keypoints(*p)
+        assert torch.equal(a, angle[i]) and torch.equal(b, bits[i])
+    ref = tdescribe.describe_keypoints_reference(*args)
+    _describe_gates((angle.reshape(-1), bits.reshape(-1, 256)),
+                    (ref[0].reshape(-1), ref[1].reshape(-1, 256)))
+    st, lv, yy, xx = args
+    before = tdescribe.launches
+    for bad in ((st, lv[:2], yy[:2], xx[:2]),
+                (st, torch.stack([lv, lv], -1)[..., 0], yy, xx),
+                (st, lv[:, :-1].contiguous(), yy, xx),
+                (st[..., :634].contiguous(), lv, yy, xx)):
+        with pytest.raises(ValueError):
+            tdescribe.describe_keypoints(*bad)
+    assert tdescribe.launches == before
+
+
+def test_batched_step_graph_equals_the_eager_batched_step(cuda_device):
+    """Two tiny streams through ``make_multistream_step`` and one block
+    of ``make_multistream_scan`` on the card (one CUDA graph each)
+    against ``track_step_batched`` and the same block called eagerly on
+    the card: bit for bit; a replay runs the describe kernel once per
+    step; every stream tracks."""
+    from kbslam_torch.parallel.multistream import (batched_init_state,
+                                                   make_multistream_scan,
+                                                   make_multistream_step)
+    from kbslam_torch.pipeline import clone_state, track_step_batched
+
+    S, T, K = 2, 6, 4
+    cfg = config.tiny_config(height=120, width=160)
+    seqs = [synthetic.render_sequence(num_frames=T, height=120, width=160,
+                                      fx=130.0, seed=s) for s in range(S)]
+    intr = Intrinsics.create(130.0, 130.0, 79.5, 59.5)
+    rgb = torch.from_numpy(np.stack([np.stack([s.rgb[t] for s in seqs])
+                                     for t in range(T)])).to(cuda_device)
+    dep = torch.from_numpy(np.stack([np.stack([s.depth[t] for s in seqs])
+                                     for t in range(T)]).astype(np.int32)
+                           ).to(cuda_device)
+    step = make_multistream_step(cfg, intr, S)
+    state = batched_init_state(cfg, S, cuda_device)
+    ref = batched_init_state(cfg, S, cuda_device)
+    for t in range(2):
+        state, out = step(state, rgb[t], dep[t])
+        c = ref.frame_count * S + torch.arange(S, dtype=torch.int32,
+                                               device=cuda_device)
+        ref, ref_out = track_step_batched(ref, rgb[t], dep[t], None, intr,
+                                          cfg, hash_sampler(0, c))
+        assert all(torch.equal(x, y) for x, y in zip(out, ref_out))
+    assert step.program.replays == 2 and bool(out.success.all())
+    scan = make_multistream_scan(cfg, intr, S, apply_every=K)
+    st_g, ninl_g = scan(clone_state(state), rgb[2:], dep[2:])
+    before = tdescribe.launches
+    st_e, (ninl_e,) = scan.program._body(clone_state(state), rgb[2:],
+                                         dep[2:])
+    assert tdescribe.launches == before + K
+    assert torch.equal(ninl_g, ninl_e) and bool((ninl_g > 0).all())
+    for a, b in zip(list(st_g.map) + list(st_g[1:]),
+                    list(st_e.map) + list(st_e[1:])):
+        assert torch.equal(a, b)
 
 
 def _nccl_solve_rank(group):
