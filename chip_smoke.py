@@ -10,7 +10,7 @@ for a machine with several cards; ``--only gates`` runs phase 23 after
 phases 1 and 2, on phase 6's window; ``--only shell`` runs phases 5 and
 7 after phases 1 and 2; ``--only multistream`` runs phases 4b and 19
 after phases 1 and 2, with the kernels line of the batched describe
-launch.
+launch; ``--only chunked`` runs phases 14-18 after phases 1 and 2.
 
 Phases (each prints one line or more; any failure raises and exits
 non-zero):
@@ -125,15 +125,23 @@ non-zero):
                 (full-width ORB and map, that test's policy and reloc
                 settings) per frame, held to that test's gates, and
                 through ``ChunkedStream`` (chunk 4, graph replays) held
-                to tests/test_loop.py:422-494's; counts the describe
-                launches of the relocalization attempts;
+                to tests/test_loop.py:422-494's, its per-keyframe
+                programs (cull, relocalization attempt) replayed as CUDA
+                graphs and bit-equal to the same stream with
+                ``graph=False`` (rows, events, state), every program call
+                after the first under sync debug mode "error", two more
+                attempts timed on each; prints per program its replays,
+                captures, capture seconds and the host and device ms of
+                a call graphed and eager; counts the describe launches of
+                the relocalization attempts;
  15. chunk_loop — the 640x480 corridor through ``ChunkedStream`` (chunk
                 8, async BA, loop closure and culling) against the same
                 stream run eagerly (``graph=False``), both merging each
                 solve at the next keyframe tick: equal results, at least
                 one correction landing between replays, 0 host syncs in
-                every dispatch after the capture; prints steady ms/frame
-                and the device busy share next to phase 10's;
+                every dispatch after the capture: bit-equal rows, events
+                and state, phase 14's program figures; prints steady
+                ms/frame and the device busy share next to phase 10's;
  16. dense    — the monolithic TSDF volume at ``SLAMConfig()``'s
                 ``DenseMapConfig`` (96x96x32 voxels) and 640x480:
                 ``integrate`` of one frame of the plane sequence on the
@@ -150,8 +158,11 @@ non-zero):
                 0.3, median error under a voxel; the mesh and its PLY
                 round trip); ``ChunkedStream`` (chunk 8, BA off) against
                 per-frame ``SLAM``, both dense (the same volume, the depth
-                ring drained, no host sync in a dispatch or a fusion); the
-                volume through a checkpoint, bit-equal;
+                ring drained, no host sync in a dispatch or in a fusion
+                after the first, which captures), and its integrate
+                replayed against the same stream with ``graph=False``
+                (bit-equal, phase 14's program figures); the volume
+                through a checkpoint, bit-equal;
  17. submaps  — the submap atlas and dense ICP at ``SLAMConfig()``'s
                 ``DenseMapConfig`` with 16 submaps (37.7 MB) and 640x480:
                 ``start_submap`` and ``integrate_active`` on the card
@@ -167,8 +178,11 @@ non-zero):
                 plane, map consistency, a mesh); ``ChunkedStream`` (chunk
                 8, BA off) against per-frame ``SLAM`` with the atlas (the
                 same atlas to the bit, the ring drained, no host sync in a
-                dispatch or in a fusion of either shell); the atlas through
-                a checkpoint, bit-equal; the dense ICP rescue through the
+                dispatch or in a fusion of either shell but a capture's
+                entry), its submap start and fuse replayed against the
+                same stream with ``graph=False`` (bit-equal, phase 14's
+                program figures); the atlas through a checkpoint,
+                bit-equal; the dense ICP rescue through the
                 mask blackout of tests/test_dense_icp.py:118-163 at its
                 320x240 and at 640x480 with ``SLAMConfig()``'s ORB and map,
                 with the volume and with the atlas, held to that test's
@@ -186,8 +200,12 @@ non-zero):
                 solve; prints device ms of a replay, kernel launches, host
                 ms, peak memory, the landmark error and the live and
                 masked PCG trips; then ``SLAM.run_global_ba`` on phase 7's
-                map (monotone, the gauge keyframe bit-unchanged, the
-                refined ATE beside phase 7's);
+                map, three times from the same map (eager, the shape's
+                first solve; the capture and a replay; a replay), each
+                bit-equal to the eager solve (``run_global_ba_on_map(
+                graph=False)``), with the host ms of each call and of the
+                eager solve (monotone, the gauge keyframe bit-unchanged,
+                the refined ATE beside phase 7's);
  19. multistream — BASELINE.json config 4: 8 streams of 640x480
                 (``render_sequence`` seeds 0-7, 33 frames) at
                 ``SLAMConfig()`` as one batched program: ``make_multistream_
@@ -247,8 +265,14 @@ non-zero):
                 sharded, eagerly, bit-equal to phase 18's eager solve at
                 world 1 and held to phase 18's gates against it at any
                 world (host ms, device ms, collectives and bytes per solve
-                and per PCG trip); ``SLAM.run_global_ba(group=)`` on phase
-                7's map against phase 18's; config 4's 8 streams sharded
+                and per PCG trip), each also captured with its NCCL
+                collectives inside (``global_ba.replayed_global_solve``)
+                and called three times (eager, capture, replay),
+                bit-equal to the eager sharded solve on every rank, 0 collective calls from the host in a replay
+                (host and device ms, compute and NCCL kernel ms);
+                ``SLAM.run_global_ba(group=)`` on phase 7's map against
+                phase 18's, three times from the same map, bit-equal to its
+                eager run; config 4's 8 streams sharded
                 over the ranks, immediate and deferred, each rank's block
                 as one batched program (phase 19's tracking and deferred
                 gates; prints whether each stream is bit-equal to phase
@@ -1411,8 +1435,8 @@ def run_corridor(dev, seq, cfg, timed=False):
                 device=dev)
     probe = close = None
     if timed and slam._loop is not None:
-        probe = slam._loop._probe = _Timed(slam._loop._probe)
-        close = slam._loop._close = _Timed(slam._loop._close)
+        probe = slam._loop._probe_cuda = _Timed(slam._loop._probe_cuda)
+        close = slam._loop._close_cuda = _Timed(slam._loop._close_cuda)
     track(slam, seq)
     slam.finish()
     refined = slam.refined_trajectory()[:, :3, 3]
@@ -1649,6 +1673,92 @@ class _CountedReloc:
         return out
 
 
+class _Program(_Timed):
+    """One of a ChunkedStream's per-keyframe programs (its LiveGraphs, or
+    with ``graph=False`` the eager function) as the stream calls it: host
+    ms and CUDA-event device ms of each call, the describe kernels it
+    launched (``describe_launches``: a reloc replay runs one), and every
+    call after the first under sync debug mode "error" (the first
+    captures the graph, and torch's capture entry synchronizes the
+    device; eagerly, it builds the per-device tables)."""
+
+    def __init__(self, fn):
+        super().__init__(fn)
+        self.launches = 0
+
+    def __call__(self, *args):
+        before = describe_launches()
+        mode = torch.cuda.get_sync_debug_mode()
+        if self.calls:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return super().__call__(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+            self.launches += describe_launches() - before
+
+
+_PROGRAMS = (("cull", "_cull"), ("reloc", "_relocalize"),
+             ("integrate", "_integrate"), ("submap_start", "_submap_start"),
+             ("submap_fuse", "_submap_fuse"))
+
+
+def watch_programs(cs) -> dict:
+    """Wrap each per-keyframe program of the ChunkedStream ``cs`` in a
+    ``_Program``; returns them by name."""
+    out = {}
+    for name, attr in _PROGRAMS:
+        fn = getattr(cs, attr, None)
+        if fn is not None:
+            out[name] = _Program(fn)
+            setattr(cs, attr, out[name])
+    return out
+
+
+def program_rows(cs, graphed, eager) -> dict:
+    """Per program of the graphed stream ``cs``: replays, captures and
+    capture seconds, and the median host ms (enqueue) and device ms (CUDA
+    events) of a call after the first, graphed (replays) and eager
+    (``graph=False``), with the number of calls."""
+    def med(x):
+        return round(float(np.median(x[1:])), 3) if len(x) > 1 else None
+
+    rows = {}
+    for name, w in graphed.items():
+        g = cs.graphs[name]
+        (gh, gd), (eh, ed) = w.times(), eager[name].times()
+        rows[name] = dict(
+            replays=g.replays, captures=len(g.graphs),
+            capture_s=[round(c, 2) for c in g.capture_s], calls=len(gh),
+            host_ms=med(gh), eager_host_ms=med(eh), device_ms=med(gd),
+            eager_device_ms=med(ed))
+    return rows
+
+
+def same_streams(a, b, what):
+    """Raise unless two ChunkedStream runs ((stream, results)) are
+    bit-equal: every output row, the relocalization and loop events, the
+    final state and the volume or atlas."""
+    from kbslam_torch.device import tensor_leaves
+
+    (cs_a, got_a), (cs_b, got_b) = a, b
+    if len(got_a) != len(got_b):
+        raise AssertionError(f"{what}: {len(got_a)} results for "
+                             f"{len(got_b)}")
+    for i, (x, y) in enumerate(zip(got_a, got_b)):
+        bad = [k for k in y if not np.array_equal(x[k], y[k])]
+        if bad:
+            raise AssertionError(f"{what}, frame {i}: {bad} differ")
+    if (cs_a.reloc_events != cs_b.reloc_events
+            or cs_a.loop_events != cs_b.loop_events):
+        raise AssertionError(f"{what}: events differ")
+    la = list(tensor_leaves((cs_a.state, cs_a.tsdf, cs_a.atlas)))
+    lb = list(tensor_leaves((cs_b.state, cs_b.tsdf, cs_b.atlas)))
+    if len(la) != len(lb) or not all(torch.equal(x, y)
+                                     for x, y in zip(la, lb)):
+        raise AssertionError(f"{what}: state or dense model differs")
+
+
 def reloc_phase(dev, smi) -> int:
     """(14) Lost-and-found at 640x480, per frame and chunked. Returns the
     describe launches of the relocalization attempts."""
@@ -1714,15 +1824,26 @@ def reloc_phase(dev, smi) -> int:
         raise AssertionError(f"{reloc_desc} describe kernels in a replay of "
                              "the reloc graph")
 
+    # chunked, the per-keyframe programs replayed, against the same
+    # stream with graph=False; then two more attempts on each, timed
     seq, rgb, dep, poses = lost_and_found(11)
     cfg = lost_config(2)
-    cs = ChunkedStream(cfg, Intrinsics.from_matrix(seq.K),
-                       init_state(cfg, dev), chunk=4)
-    ch = cs._reloc = _CountedReloc(cs._reloc)
-    got = []
-    for i in range(len(poses)):
-        got += cs.feed(rgb[i], dep[i])
-    got += cs.flush()
+    runs, progs = {}, {}
+    for graph in (True, False):
+        cs = ChunkedStream(cfg, Intrinsics.from_matrix(seq.K),
+                           init_state(cfg, dev), chunk=4, graph=graph)
+        progs[graph] = watch_programs(cs)
+        got = []
+        for i in range(len(poses)):
+            got += cs.feed(rgb[i], dep[i])
+        got += cs.flush()
+        runs[graph] = (cs, got)
+    same_streams(runs[True], runs[False], "chunked reloc graphed vs eager")
+    for graph in (True, False):
+        cs = runs[graph][0]
+        for _ in range(2):
+            cs._attempt(cs._probe_frame[1])
+    (cs, got), ch = runs[True], progs[True]["reloc"]
     cev = cs.reloc_events
     if not cev or cs.replays < 1:
         raise AssertionError(f"chunked reloc: events {cev}, replays "
@@ -1736,7 +1857,10 @@ def reloc_phase(dev, smi) -> int:
             or not cerr.max() < 0.08):
         raise AssertionError(f"chunked reloc: events {cev}, tail {tail}, "
                              f"errors {cerr}")
-    ch_host, ch_dev = ch.timed.times()
+    ch_host, ch_dev = ch.times()
+    eager = progs[False]["reloc"]
+    e_host, e_dev = eager.times()
+    rows = program_rows(cs, progs[True], progs[False])
     print(f"[reloc] lost-and-found 640x480 (SLAMConfig() ORB/map, the test's "
           f"policy and reloc settings): per frame {len(ev)} relocalizations "
           f"{ev}, tail error max {errs[2].max() * 1e3:.2f} mm (off "
@@ -1749,15 +1873,21 @@ def reloc_phase(dev, smi) -> int:
           f"kernel (torch.profiler); "
           f"chunked (chunk 4, {cs.replays} replays) {cev}, tail from frame "
           f"{recover_by} all tracked, error max {cerr.max() * 1e3:.2f} mm, "
-          f"{len(ch_host)} attempts host ms {ch_host} device ms {ch_dev}, "
-          f"describe launches {ch.launches}; {smi}", flush=True)
-    return pf.launches + ch.launches
+          f"bit-equal to the stream with graph=False (rows, events, state); "
+          f"its attempts (the run's, then 2 more) as a replayed graph host "
+          f"ms {ch_host} device ms {ch_dev}, eagerly host ms {e_host} device "
+          f"ms {e_dev}, describe launches {ch.launches} graphed and "
+          f"{eager.launches} eager; every program call after the first 0 "
+          f"host syncs (sync debug mode 'error'); per program {rows}; "
+          f"{smi}", flush=True)
+    return pf.launches + ch.launches + eager.launches
 
 
 def chunk_loop_phase(dev, smi, pace):
     """(15) The 640x480 corridor through ChunkedStream (chunk 8, async BA,
     loop closure, culling), replayed against the same stream run
     eagerly."""
+    from kbslam_torch import device
     from kbslam_torch.geom.camera import Intrinsics
     from kbslam_torch.pipeline import init_state
     from kbslam_torch.streaming import ChunkedStream
@@ -1765,34 +1895,50 @@ def chunk_loop_phase(dev, smi, pace):
     seq = corridor(480, 640)
     cfg = corridor_config(True, True, cull=True)
     intr = Intrinsics.from_matrix(seq.K)
-    runs = {}
+    runs, progs = {}, {}
     for graph in (False, True):
         cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK,
                            ba_mode="async", graph=graph)
+        progs[graph] = watch_programs(cs)
         # merge each solve at the next keyframe tick (waiting for it), so
         # both runs merge at the same drained frames
         cs._async.ready = lambda cs=cs: cs._async.inflight is not None
         at_close = []
-        close = cs._loop._close
+        close = cs._loop._close_cuda
 
         def counted(*args, cs=cs, at_close=at_close, close=close):
             at_close.append(cs.replays)
             return close(*args)
 
-        cs._loop._close = counted
+        cs._loop._close_cuda = counted
+        # the process's graph captures so far, at each dispatch: a chunk
+        # interval with a capture in it (the probe's, a close's, once per
+        # process) is left out of the steady pace
+        caps, dispatch = [], cs._dispatch
+
+        def at_dispatch(n, caps=caps, dispatch=dispatch):
+            caps.append(sum(device.captures.values()))
+            dispatch(n)
+
+        cs._dispatch = at_dispatch
         got, ends, host_ms, _ = _stream(cs, seq, range(len(seq.rgb)),
                                         sync_checked=graph)
-        cs._loop._close = close
+        cs._loop._close_cuda = close
         del cs._async.ready
-        runs[graph] = (got, ends, host_ms, at_close, cs)
-    (ref, _, _, _, _), (got, ends, host_ms, at_close, cs) = runs[False], runs[True]
-    worst = _same_results(got, ref, "chunked loop vs eager stream")
+        runs[graph] = (got, ends, host_ms, at_close, cs, caps)
+    (ref, _, _, _, ref_cs, _), (got, ends, host_ms, at_close, cs, caps) = (
+        runs[False], runs[True])
+    same_streams((cs, got), (ref_cs, ref), "chunked loop vs eager stream")
+    rows = program_rows(cs, progs[True], progs[False])
     between = [r for r in at_close if 1 <= r < cs.replays]
     if not between:
         raise AssertionError(f"no correction between replays: closes at "
                              f"replays {at_close} of {cs.replays}")
     full = len(seq.rgb) // CHUNK
-    ms_frame = ends[0].elapsed_time(ends[full - 1]) / ((full - 1) * CHUNK)
+    all_ms = ends[0].elapsed_time(ends[full - 1]) / ((full - 1) * CHUNK)
+    clean = [ends[i - 1].elapsed_time(ends[i]) for i in range(1, full)
+             if caps[i] == caps[i - 1]]
+    ms_frame = sum(clean) / (len(clean) * CHUNK) if clean else all_ms
     # a cull on a copy of the final map, every host sync counted
     from kbslam_torch.mapping.cull import make_cull
     from kbslam_torch.mapping.state import device_copy
@@ -1807,11 +1953,14 @@ def chunk_loop_phase(dev, smi, pace):
     print(f"[chunk_loop] corridor 640x480, chunk {CHUNK}, ba async, loop and "
           f"cull on: {len(cs.loop_events)} loops closed (at replays "
           f"{at_close} of {cs.replays}; {len(between)} between replays), "
-          f"{len(cs.ba_stats)} solves; equal to the eager stream (poses "
-          f"within {worst:.1e}); 0 host syncs in every dispatch after the "
-          f"capture; host ms per dispatch median "
+          f"{len(cs.ba_stats)} solves; bit-equal to the stream with "
+          f"graph=False (rows, events, state); 0 host syncs in every "
+          f"dispatch after the capture and every program call after the "
+          f"first; per program {rows}; host ms per dispatch median "
           f"{np.median(host_ms[1:full]):.3f}; steady {ms_frame:.3f} ms/frame "
-          f"(chunks 2-{full}, CUDA events, probes and closes included), "
+          f"({len(clean)} of chunks 2-{full}, those without a graph capture "
+          f"in them; {all_ms:.3f} over all {full - 1}; CUDA events, probes "
+          f"and closes included), "
           f"device busy {replay_ms / (ms_frame * CHUNK):.1%}; phase 10 (loop "
           f"off, plane): {pace['ms_frame']:.3f} ms/frame, busy "
           f"{pace['busy']:.1%}; 0 host syncs in a cull; {smi}", flush=True)
@@ -1870,6 +2019,22 @@ def _peak_gb(fn):
     fn()
     torch.cuda.synchronize()
     return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def checked_after_first(fn, calls):
+    """``fn`` with every call after the first under sync debug mode
+    "error" (the first captures the stream's fusion graphs, and torch's
+    capture entry synchronizes the device); each call appends its
+    arguments to ``calls``."""
+    def run(*args):
+        if calls:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append(args)
+    return run
 
 
 def dense_phase(dev, seq, smi, pace) -> int:
@@ -2027,23 +2192,24 @@ def dense_phase(dev, seq, smi, pace) -> int:
           f"faces, PLY round trip equal; describe launches {dense_launches};"
           f" {smi}", flush=True)
 
-    # 4. chunked against per frame, BA off; every dispatch after the
-    # capture and every fusion under sync debug mode "error"
+    # 4. chunked against per frame, BA off, and the stream's programs
+    # replayed against the same stream with graph=False; every dispatch
+    # after the capture and every fusion after the first (which captures
+    # the integrate graph) under sync debug mode "error"
     per_frame = track(SLAM(cfg, seq.K, ba_mode="disabled", device=dev), seq)
-    cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK)
-    fuse_kf, fusions = cs._fuse_kf, []
-
-    def checked_fuse(*args):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            fuse_kf(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        fusions.append(args[2].shape)
-
-    cs._fuse_kf = checked_fuse
-    got_c, _, _, _ = _stream(cs, seq, range(FRAMES), sync_checked=True)
-    del cs._fuse_kf
+    runs, progs, fusions = {}, {}, []
+    for graph in (True, False):
+        cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK,
+                           graph=graph)
+        progs[graph] = watch_programs(cs)
+        calls = fusions if graph else []
+        cs._fuse_kf = checked_after_first(cs._fuse_kf, calls)
+        got, _, _, _ = _stream(cs, seq, range(FRAMES), sync_checked=True)
+        del cs._fuse_kf
+        runs[graph] = (cs, got)
+    same_streams(runs[True], runs[False], "chunked dense graphed vs eager")
+    (cs, got_c) = runs[True]
+    rows = program_rows(cs, progs[True], progs[False])
     if (len(got_c) != FRAMES or cs._depth_ring or cs.replays < 1
             or len(fusions) != per_frame.num_keyframes
             or not torch.equal(cs.tsdf.weight, per_frame.tsdf.weight)
@@ -2069,10 +2235,12 @@ def dense_phase(dev, seq, smi, pace) -> int:
     print(f"[dense] ChunkedStream chunk {CHUNK}, BA off, dense on, "
           f"{cs.replays} replays: {len(fusions)} chunk-late fusions, volume "
           f"equal to per-frame SLAM (weights equal, tsdf within {t_gap:.1e}),"
-          f" depth ring drained; 0 host syncs in every dispatch after the "
-          f"capture and in every fusion (sync debug mode 'error'; one more "
-          f"fusion with every sync counted: {dict(sites)}); the volume saved "
-          f"and loaded bit-equal; {smi}", flush=True)
+          f" depth ring drained; bit-equal to the stream with graph=False "
+          f"(rows, state, volume); 0 host syncs in every dispatch after the "
+          f"capture and in every fusion after the first (sync debug mode "
+          f"'error'; one more fusion with every sync counted: "
+          f"{dict(sites)}); per program {rows}; the volume saved and loaded "
+          f"bit-equal; {smi}", flush=True)
     return dense_launches
 
 
@@ -2354,18 +2522,10 @@ def submap_phase(dev, seq, smi, pace) -> int:
           f"{pace['dense_kf_ms']:.2f}; describe launches {sub_launches}; "
           f"{smi}", flush=True)
 
-    # 4. chunked against per frame, BA off; every fusion of both and every
-    # dispatch after the capture under sync debug mode "error"
-    def checked(fn, calls):
-        def run(*args):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                fn(*args)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            calls.append(1)
-        return run
-
+    # 4. chunked against per frame, BA off, and the stream's programs
+    # replayed against the same stream with graph=False; every fusion of
+    # each shell counted for host syncs (none but a capture's entry), and
+    # every dispatch after the capture under sync debug mode "error"
     def checked_shell(fn, calls):
         # a fusion that captures a graph (the first start and the first
         # fuse) may sync in torch's capture entry; nothing else may
@@ -2388,11 +2548,18 @@ def submap_phase(dev, seq, smi, pace) -> int:
     per_frame._fuse = checked_shell(per_frame._fuse, pf_fusions)
     track(per_frame, seq)
     del per_frame._fuse
-    cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK)
-    fusions = []
-    cs._fuse_kf = checked(cs._fuse_kf, fusions)
-    got_c, _, _, _ = _stream(cs, seq, range(FRAMES), sync_checked=True)
-    del cs._fuse_kf
+    runs, progs, fusions = {}, {}, []
+    for graph in (True, False):
+        cs = ChunkedStream(cfg, intr, init_state(cfg, dev), chunk=CHUNK,
+                           graph=graph)
+        progs[graph] = watch_programs(cs)
+        cs._fuse_kf = checked_shell(cs._fuse_kf, fusions if graph else [])
+        got, _, _, _ = _stream(cs, seq, range(FRAMES), sync_checked=True)
+        del cs._fuse_kf
+        runs[graph] = (cs, got)
+    same_streams(runs[True], runs[False], "chunked atlas graphed vs eager")
+    (cs, got_c) = runs[True]
+    rows = program_rows(cs, progs[True], progs[False])
     eq = [torch.equal(a, b) for a, b in zip(cs.atlas[:5], per_frame.atlas[:5])]
     if not (len(got_c) == FRAMES and not cs._depth_ring and cs.replays >= 1
             and len(fusions) == len(pf_fusions) == per_frame.num_keyframes
@@ -2416,10 +2583,11 @@ def submap_phase(dev, seq, smi, pace) -> int:
     print(f"[submaps] ChunkedStream chunk {CHUNK}, BA off, submaps on, "
           f"{cs.replays} replays: {len(fusions)} chunk-late fusions into "
           f"{cs.atlas.count} submaps, atlas (tsdf, weight, anchors, ids) "
-          f"bit-equal to per-frame SLAM's, depth ring drained; 0 host syncs "
-          f"in every dispatch after the capture and in every fusion of both "
-          f"shells (sync debug mode 'error'); the atlas saved and loaded "
-          f"bit-equal; {smi}", flush=True)
+          f"bit-equal to per-frame SLAM's, depth ring drained; bit-equal to "
+          f"the stream with graph=False (rows, state, atlas); 0 host syncs "
+          f"in every dispatch after the capture and in every fusion of each "
+          f"shell but a capture's entry; per program {rows}; the atlas saved "
+          f"and loaded bit-equal; {smi}", flush=True)
 
     # 6. dense ICP rescue through the mask blackout: at the test's own
     # 320x240 configuration, then at 640x480 with SLAMConfig()'s ORB and
@@ -2649,17 +2817,46 @@ def global_ba_phase(dev, smi, slam7, seq, ate7):
           f"the most device time {top}; {smi}", flush=True)
 
     # SLAM.run_global_ba on phase 7's map: the oldest real keyframe is
-    # the gauge
+    # the gauge. From the same map four times: eagerly
+    # (run_global_ba_on_map(graph=False), the yardstick), then the
+    # shell's call three times (eager, the shape's first solve; the
+    # capture and a replay; a replay)
+    from kbslam_torch import device
+    from kbslam_torch.pipeline import clone_state
+    from kbslam_torch.slam import run_global_ba_on_map
+
     m = slam7.state.map
     n_cams = min(int(m.num_kf), m.capacity_kf)
     slots, _, real = window_slots(m, n_cams)
     g = int(slots[int(torch.argmax(real.to(torch.int32)))])
     gauge = (m.kf_q[g].clone(), m.kf_t[g].clone())
     map_before = convert.map_to_numpy(m)
+    saved = clone_state(slam7.state)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_costs = slam7.run_global_ba()
-    run_ms = (time.perf_counter() - t0) * 1e3
-    m = slam7.state.map
+    eager_map, eager_costs = run_global_ba_on_map(
+        saved.map, slam7.intr, slam7.config.ba, graph=False)
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    calls = []
+    for k in range(3):
+        slam7.state = saved
+        captured = device.captures["global_ba"]
+        replayed = device.replays["global_ba"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_costs = slam7.run_global_ba()
+        ms = (time.perf_counter() - t0) * 1e3
+        m = slam7.state.map
+        if not (run_costs == eager_costs and all(
+                torch.equal(getattr(m, f), getattr(eager_map, f))
+                for f in ("kf_q", "kf_t", "mp_pos"))):
+            raise AssertionError(f"SLAM.run_global_ba, call {k + 1}, != the "
+                                 "eager solve")
+        calls.append((round(ms, 1), device.captures["global_ba"] - captured,
+                      device.replays["global_ba"] - replayed))
+    if [c[1:] for c in calls] != [(0, 0), (1, 1), (0, 1)]:
+        raise AssertionError(f"run_global_ba (ms, captures, replays) per "
+                             f"call: {calls}")
     rc = np.asarray(run_costs)
     if not (np.isfinite(rc).all() and (np.diff(rc) <= 0).all()):
         raise AssertionError(f"SLAM.run_global_ba costs {run_costs}")
@@ -2670,10 +2867,15 @@ def global_ba_phase(dev, smi, slam7, seq, ate7):
     ate_ref = trajectory.ate_rmse(slam7.refined_trajectory()[:, :3, 3], gt)
     print(f"[global_ba] SLAM.run_global_ba on phase 7's map ({n_cams} "
           f"keyframes, 640x480): cost {[round(x, 3) for x in run_costs]}, "
-          f"the gauge keyframe (slot {g}) bit-unchanged, {run_ms:.1f} ms "
-          f"with its host reads; refined ATE {ate_ref * 1e3:.2f} mm (phase "
-          f"7: online {ate7[0] * 1e3:.2f} mm, refined by local BA "
-          f"{ate7[1] * 1e3:.2f} mm); {smi}", flush=True)
+          f"the gauge keyframe (slot {g}) bit-unchanged; host ms to the end "
+          f"of the call (problem build, solve, write-back, costs read): "
+          f"eager solve {eager_ms:.1f}, first call {calls[0][0]} (eager, the "
+          f"shape's first solve; 0 captures), second call {calls[1][0]} "
+          f"(capture and replay; 1 capture), third call {calls[2][0]} (a "
+          f"replay, 0 captures); all three bit-equal to the eager solve (map "
+          f"and costs); refined ATE "
+          f"{ate_ref * 1e3:.2f} mm (phase 7: online {ate7[0] * 1e3:.2f} mm, "
+          f"refined by local BA {ate7[1] * 1e3:.2f} mm); {smi}", flush=True)
     return dict(eager=_solve_rows(out, costs, stats), map_before=map_before,
                 map_after=convert.map_to_numpy(m), run_costs=run_costs,
                 gauge_slot=g)
@@ -3701,19 +3903,65 @@ def _dist_global_ba(group, refs) -> dict:
         torch.cuda.synchronize()
         trip = (_nbytes(counts) - _nbytes(group.counts)) / (GBA_ROUNDS
                                                            * GBA_RETRIES)
+        # the same solve through its per-shape graph, collectives inside,
+        # called three times (eager, capture and replay, replay): host ms
+        # to its end, device ms by CUDA events, Python collective calls
+        graphed = gba.replayed_global_solve(intr, GBA_ROUNDS, GBA_PCG,
+                                            False, 1.0, group, ls)
+        mine = (out.cam_q, out.cam_t, out.mp_pos, costs)
+        calls = []
+        g0 = torch.cuda.Event(enable_timing=True)
+        g1 = torch.cuda.Event(enable_timing=True)
+        for _ in range(3):
+            group.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g0.record()
+            g_out, g_costs = graphed(shard)
+            g1.record()
+            torch.cuda.synchronize()
+            calls.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                event_ms=g0.elapsed_time(g1),
+                collectives=group.collectives(),
+                same=all(torch.equal(a, b) for a, b in zip(
+                    (g_out.cam_q, g_out.cam_t, g_out.mp_pos, g_costs), mine))))
+        g_kern, g_nccl, g_n = _kernel_split(lambda: graphed(shard))
         res[name] = dict(rows=_solve_rows(gba.gather_global_data(out, group),
                                           costs, stats),
                          counts=counts, trip_bytes=trip, host_ms=host_ms,
                          end_ms=end_ms, event_ms=start.elapsed_time(end),
-                         kernel_ms=kern_ms, nccl_ms=nccl_ms, kernels=n_kern)
+                         kernel_ms=kern_ms, nccl_ms=nccl_ms, kernels=n_kern,
+                         graphed=calls, graphed_kernels=(g_kern, g_nccl, g_n))
+
+    # SLAM.run_global_ba(group=) on phase 7's map: eagerly
+    # (run_global_ba_on_map(graph=False)), then the shell's call three
+    # times from the same map
+    from kbslam_torch.pipeline import clone_state
+    from kbslam_torch.slam import run_global_ba_on_map
 
     slam = SLAM(config.SLAMConfig(), refs["K"], device=dev)
     slam.state = slam.state._replace(
         map=convert.map_to_torch(refs["map_before"], dev))
+    saved = clone_state(slam.state)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_costs = slam.run_global_ba(group=group)
-    res["run"] = dict(costs=run_costs, ms=(time.perf_counter() - t0) * 1e3,
-                      map=convert.map_to_numpy(slam.state.map))
+    eager_map, eager_costs = run_global_ba_on_map(
+        saved.map, slam.intr, slam.config.ba, group=group, graph=False)
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    runs = []
+    for _ in range(3):
+        slam.state = saved
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_costs = slam.run_global_ba(group=group)
+        m = slam.state.map
+        runs.append(dict(ms=(time.perf_counter() - t0) * 1e3, same=(
+            run_costs == eager_costs and all(
+                torch.equal(getattr(m, f), getattr(eager_map, f))
+                for f in ("kf_q", "kf_t", "mp_pos")))))
+    res["run"] = dict(costs=run_costs, ms=runs[0]["ms"], eager_ms=eager_ms,
+                      calls=runs, map=convert.map_to_numpy(slam.state.map))
     return res
 
 
@@ -3977,6 +4225,41 @@ def distributed_phase(dev, smi, slam7, seq, gba_refs, stream_refs) -> tuple:
             and np.array_equal(run["map"].kf_t[g], before.kf_t[g])):
         raise AssertionError(f"SLAM.run_global_ba(group=): costs {rc} vs "
                              f"phase 18's {rc1}, or the gauge moved")
+    graphed = []
+    for name in ("camera", "landmark"):
+        per_rank = [x["global_ba"][name]["graphed"] for x in runs]
+        if not all(c["same"] for calls in per_rank for c in calls):
+            raise AssertionError(f"the captured {name}-sharded solve != the "
+                                 "eager sharded solve")
+        if any(calls[2]["collectives"] for calls in per_rank):
+            raise AssertionError(f"the {name}-sharded replay made collective "
+                                 "calls from the host")
+        kern = [x["global_ba"][name]["graphed_kernels"] for x in runs]
+        graphed.append(
+            f"{name}-sharded captured with its collectives and replayed, "
+            f"bit-equal to the eager sharded solve on every rank: host ms "
+            f"to the end of the first call (eager) "
+            f"{[round(c[0]['ms'], 1) for c in per_rank]}, of the second "
+            f"(capture, replay) {[round(c[1]['ms'], 1) for c in per_rank]}, "
+            f"of the third (a replay) "
+            f"{[round(c[2]['ms'], 1) for c in per_rank]}, device "
+            f"{[round(c[2]['event_ms'], 2) for c in per_rank]} ms by CUDA "
+            f"events, {[round(k[0], 2) for k in kern]} ms of compute kernels "
+            f"and {[round(k[1], 2) for k in kern]} ms of NCCL kernels in "
+            f"{[k[2] for k in kern]} kernels (torch.profiler), 0 collective "
+            f"calls from the host in a replay")
+    run_calls = [x["global_ba"]["run"] for x in runs]
+    if not all(c["same"] for r in run_calls for c in r["calls"]):
+        raise AssertionError("SLAM.run_global_ba(group=) != the eager "
+                             "sharded solve")
+    graphed.append(
+        f"SLAM.run_global_ba(group=) per rank: eager "
+        f"{[round(r['eager_ms'], 1) for r in run_calls]} ms, first call "
+        f"{[round(r['calls'][0]['ms'], 1) for r in run_calls]} ms (eager), "
+        f"second {[round(r['calls'][1]['ms'], 1) for r in run_calls]} ms "
+        f"(capture, replay), third "
+        f"{[round(r['calls'][2]['ms'], 1) for r in run_calls]} ms (a "
+        f"replay), all bit-equal to the eager sharded run")
     print(f"[distributed] world {world} ({', '.join(cards)}; one NCCL rank "
           f"per card through parallel.dist.spawn, {spawn_s:.1f} s for the "
           f"ranks' whole run, frames written in {write_s:.1f} s); config 5 "
@@ -3990,8 +4273,8 @@ def distributed_phase(dev, smi, slam7, seq, gba_refs, stream_refs) -> tuple:
           f"{[round(x, 3) for x in run['costs']]}, "
           + ("bit-equal to phase 18's" if world == 1 else
              f"within {run_gap.max():.1e} of phase 18's per round")
-          + f", the gauge keyframe bit-unchanged, {run['ms']:.1f} ms; {smi}",
-          flush=True)
+          + f", the gauge keyframe bit-unchanged, {run['ms']:.1f} ms; "
+          + "; ".join(graphed) + f"; {smi}", flush=True)
 
     # (b) config 4 sharded against phase 19's digests
     st = [r["streams"] for r in runs]
@@ -4429,6 +4712,30 @@ def distributed_alone(dev, smi, name) -> int:
     return 0
 
 
+def chunked_alone(dev, smi, name) -> int:
+    """``--only chunked``: phases 14-18 after phases 1-2, phase 18 on a map
+    tracked as phase 7 tracks it (phase 10's pace and phase 7's ms are
+    not measured here)."""
+    from kbslam_torch import config
+    from kbslam_torch.io import synthetic
+    from kbslam_torch.slam import SLAM
+
+    seq = synthetic.render_sequence(num_frames=FRAMES, height=480, width=640)
+    nan = float("nan")
+    pace = {"ms_frame": nan, "busy": nan, "slam_ba_ms": nan}
+    reloc_phase(dev, smi)
+    chunk_loop_phase(dev, smi, pace)
+    dense_phase(dev, seq, smi, pace)
+    submap_phase(dev, seq, smi, pace)
+    slam = track(SLAM(config.SLAMConfig(), seq.K, device=dev), seq)
+    global_ba_phase(dev, smi, slam, seq, check_ba_run(slam, seq))
+    assert_no_jax()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def multistream_alone(dev, smi, name) -> int:
     """``--only multistream``: phase 4b and phase 19 after phases 1-2,
     with the kernels line of the batched describe launch."""
@@ -4448,10 +4755,11 @@ def multistream_alone(dev, smi, name) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "distributed"], ["--only", "gates"],
-                    ["--only", "shell"], ["--only", "multistream"]):
-        print("usage: python3 chip_smoke.py "
-              "[--only distributed|gates|shell|multistream]", file=sys.stderr)
+    modes = ("distributed", "gates", "shell", "multistream", "chunked")
+    if argv and (len(argv) != 2 or argv[0] != "--only"
+                 or argv[1] not in modes):
+        print("usage: python3 chip_smoke.py [--only "
+              + "|".join(modes) + "]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4483,6 +4791,8 @@ def main(argv=None) -> int:
         return shell_alone(dev, smi, name)
     if argv == ["--only", "multistream"]:
         return multistream_alone(dev, smi, name)
+    if argv == ["--only", "chunked"]:
+        return chunked_alone(dev, smi, name)
     if argv:
         return distributed_alone(dev, smi, name)
 

@@ -49,6 +49,7 @@ import torch
 
 from kbslam_torch.ba.compact_lm import inv3x3
 from kbslam_torch.ba.problem import build_problem
+from kbslam_torch.device import Replayed
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.geom.se3 import SE3, cross_matrix, quat_conj, quat_to_matrix
 from kbslam_torch.mapping.state import scatter_rows
@@ -460,6 +461,42 @@ def dryrun_sharded_global_ba(group: ShardGroup) -> None:
         raise AssertionError("global BA produced NaNs")
     if not bool(costs[-1] <= costs[0]):
         raise AssertionError(f"LM guard failed to be monotone: {costs}")
+
+
+def make_global_solve(intr: Intrinsics, iters: int, pcg_iters: int,
+                      depth_rows: bool, huber_delta: float,
+                      group: Optional[ShardGroup] = None,
+                      landmark_sharded: bool = False):
+    """``solve(data) -> (data, costs)``: ``global_ba_solve`` with these
+    settings bound, the function ``slam.run_global_ba_on_map`` runs (on
+    CUDA through ``replayed_global_solve``)."""
+    def solve(data):
+        return global_ba_solve(data, intr, iters=iters, pcg_iters=pcg_iters,
+                               depth_rows=depth_rows, huber_delta=huber_delta,
+                               group=group, landmark_sharded=landmark_sharded)
+    return solve
+
+
+def replayed_global_solve(intr: Intrinsics, iters: int, pcg_iters: int,
+                          depth_rows: bool, huber_delta: float,
+                          group: Optional[ShardGroup] = None,
+                          landmark_sharded: bool = False) -> Replayed:
+    """``make_global_solve``'s solve on CUDA as one CUDA graph per problem
+    shape (``device.Replayed``), keyed by the settings and the world size
+    and kept in the group's ``graphs`` (or the process's, without a
+    group): the counterpart of the reference's one jitted program per
+    shape. The first solve at a shape runs eagerly and warms the capture
+    up; the second captures and replays, later ones replay. Over an NCCL
+    group the graph holds the solve's collectives: every rank captures
+    the same sequence, after the eager solve's collectives have set up
+    the communicator."""
+    world = 1 if group is None else group.world
+    settings = (iters, pcg_iters, depth_rows, huber_delta)
+    return Replayed(make_global_solve(intr, *settings, group,
+                                      landmark_sharded),
+                    ("global_ba", intr, settings, landmark_sharded, world),
+                    name="global_ba",
+                    cache=None if group is None else group.graphs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,9 @@
 """Device selection, float32 matmul precision, host uploads and CUDA
-graph capture.
+graph capture: ``CapturedCall`` (one call captured over static inputs),
+``LiveGraphs`` (a program replayed on the tensors it was captured on),
+``Replayed`` (one captured call per argument shapes, from the second
+call with them) and ``Programs`` (a shell's named programs, with the
+static tensors they read).
 
 The port runs on the card: without a device name, ``pick_device``
 returns the current CUDA device and raises when there is none. The CPU
@@ -39,20 +43,11 @@ def pick_device(name: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def upload(array, device: torch.device) -> torch.Tensor:
-    """A copy of the host ``array`` on ``device``. On CUDA it goes through
-    a fresh pinned buffer with an asynchronous copy, so it makes no host
-    sync; PyTorch's pinned-memory cache keeps the buffer until the copy
-    has run."""
-    t = torch.from_numpy(np.array(array))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 def upload_into(dst: torch.Tensor, array) -> torch.Tensor:
-    """Copy the host ``array`` into the device tensor ``dst`` in place
-    (``upload``'s pinned, asynchronous copy on CUDA); returns ``dst``."""
+    """Copy the host ``array`` into the device tensor ``dst`` in place;
+    returns ``dst``. On CUDA the copy goes through a fresh pinned buffer
+    and is asynchronous, so it makes no host sync; PyTorch's
+    pinned-memory cache keeps the buffer until the copy has run."""
     t = torch.from_numpy(np.array(array)).to(dst.dtype).reshape(dst.shape)
     if dst.is_cuda:
         t = t.pin_memory()
@@ -109,18 +104,20 @@ class CapturedCall:
     and a call takes no arguments. ``stream`` is the stream of the
     warm-up and the capture (default: a new one for the warm-up and
     torch's capture stream), ``pool`` a memory pool shared with other
-    graphs."""
+    graphs. ``warm=False`` leaves the warm-up out, where the caller has
+    just run ``fn`` eagerly at these shapes on this device."""
 
     def __init__(self, fn, *args, live: bool = False, stream=None,
-                 pool=None):
+                 pool=None, warm: bool = True):
         self.inputs = args if live else _clone(args)
-        dev = next(tensor_leaves(args)).device
-        cur = torch.cuda.current_stream(dev)
-        side = stream if stream is not None else torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fn(*(_clone(args) if live else self.inputs))
-        cur.wait_stream(side)
+        if warm:
+            dev = next(tensor_leaves(args)).device
+            cur = torch.cuda.current_stream(dev)
+            side = stream if stream is not None else torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                fn(*(_clone(args) if live else self.inputs))
+            cur.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with graph_capture(self.graph, stream=stream, pool=pool):
             self.outputs = fn(*self.inputs)
@@ -194,6 +191,100 @@ class LiveGraphs:
         self.replays += 1
         replays[self.name] += 1
         return g.outputs
+
+
+_WARMED = object()     # a Replayed shape run once, eagerly
+
+
+class Replayed:
+    """``fn(*args)`` on CUDA as one CUDA graph per set of argument shapes
+    and dtypes: the port's counterpart of a jitted function, which keeps
+    one executable per shape. The first call with those shapes runs
+    ``fn`` eagerly, and that run is the warm-up (library handles, caches,
+    an NCCL communicator's first collective); the second captures ``fn``
+    (``CapturedCall`` over static copies of the arguments, no warm-up of
+    its own) and replays it, and later calls replay. A shape called once
+    thus costs what the eager call does, and one called again pays the
+    capture once. The graphs are shared by every instance with the same
+    ``key``, which names the settings ``fn`` was made with (whatever it
+    bakes in besides its arguments), and kept for the life of the
+    process; ``cache``, when given, is the dict that keeps them instead
+    (a process group's ``graphs``, which must not outlive the group). A
+    replay returns ``fn``'s outputs in the graph's memory, rewritten by
+    the next call with those shapes: read or copy them first. A CPU
+    tensor raises ``ValueError``: the caller runs ``fn`` itself there. A
+    capture that fails raises. With a ``name``, the module's ``replays``
+    and ``captures`` count the replays and captures by it."""
+
+    _graphs: dict = {}
+
+    def __init__(self, fn, key, name=None, cache=None):
+        self.fn, self.key, self.name = fn, key, name
+        self._cache = self._graphs if cache is None else cache
+
+    def __call__(self, *args):
+        leaves = list(tensor_leaves(args))
+        if not all(t.is_cuda for t in leaves):
+            raise ValueError("Replayed replays on CUDA tensors only")
+        k = (self.key, leaves[0].device,
+             tuple((t.shape, t.dtype) for t in leaves))
+        call = self._cache.get(k)
+        if call is None:            # the first call: eager, the warm-up
+            self._cache[k] = _WARMED
+            return self.fn(*args)
+        if call is _WARMED:
+            call = self._cache[k] = CapturedCall(self.fn, *args, warm=False)
+            captures[self.name] += 1
+        replays[self.name] += 1
+        return call(*args)
+
+
+class Programs:
+    """A shell's programs (``slam.SLAM``, ``streaming.ChunkedStream``):
+    on CUDA, ``program`` makes each a ``LiveGraphs`` (``graphs[name]``),
+    captured on the shell's own stream, whose cuBLAS workspace no
+    concurrent graph bakes in, and in the shell's one memory pool (a
+    program's outputs are read before another replays); on the CPU, or
+    with ``graphed=False``, it returns the plain function. ``load`` keeps
+    the static device tensors the graphs read, one per (name, shape,
+    dtype); ``statics`` holds them."""
+
+    def __init__(self, device: torch.device, graphed: bool = True):
+        self.device = device
+        self.graphs: dict = {}
+        self.statics: dict = {}
+        self.graphed = graphed and device.type == "cuda"
+        if self.graphed:
+            self.stream = torch.cuda.Stream(device)
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def program(self, name: str, fn):
+        """``fn`` as the shell calls it: replayed as CUDA graphs on CUDA,
+        the function itself otherwise."""
+        if not self.graphed:
+            return fn
+        g = self.graphs[name] = LiveGraphs(fn, stream=self.stream,
+                                           pool=self.pool, name=name)
+        return g
+
+    def static(self, name: str, shape, dtype=torch.float32) -> torch.Tensor:
+        """The static device tensor ``name``: one per name, shape and
+        dtype, kept across calls (the graphs read it)."""
+        k = (name, tuple(shape), dtype)
+        buf = self.statics.get(k)
+        if buf is None:
+            buf = self.statics[k] = torch.empty(shape, dtype=dtype,
+                                                device=self.device)
+        return buf
+
+    def load(self, name: str, array, dtype=torch.float32) -> torch.Tensor:
+        """The static tensor ``name`` with the host ``array`` copied in
+        (``upload_into``), or filled with it when it is a scalar."""
+        a = np.asarray(array)
+        buf = self.static(name, a.shape, dtype)
+        if a.ndim == 0:
+            return buf.fill_(a.item())
+        return upload_into(buf, a)
 
 
 def assign_state(dst, src):

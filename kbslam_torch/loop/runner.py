@@ -21,10 +21,11 @@ replaced (``start_at``), and both shells report every insertion.
 Each probe's result comes to the host in one copy of a small packed
 vector; a verified loop's close is dispatched on device tensors and its
 stats come back in one more copy. On CUDA the probe and the close are
-each replayed as one CUDA graph (``device.CapturedCall``), captured at
-the first call for a map's shapes and shared by every runner of the
-process with the same settings: both are launch-bound eagerly (a close
-of a 64-keyframe ring is ~63k small kernels).
+each replayed as one CUDA graph (``device.Replayed``), captured at the
+second call for a map's shapes (the first runs eagerly) and shared by
+every runner of the process with the same settings: both are
+launch-bound eagerly (a close of a 64-keyframe ring is ~63k small
+kernels). On the CPU they run eagerly.
 """
 from __future__ import annotations
 
@@ -32,32 +33,9 @@ from typing import List
 
 import torch
 
-from kbslam_torch.device import CapturedCall, tensor_leaves
+from kbslam_torch.device import Replayed
 from kbslam_torch.loop.closure import make_close_loop
 from kbslam_torch.loop.detect import make_loop_probe
-
-
-class _Replayed:
-    """``fn`` eagerly on the CPU; on CUDA ``fn`` captured as one CUDA graph
-    at its first call for each set of argument shapes and replayed after.
-    The graphs are shared by every instance with the same ``key`` (the
-    settings ``fn`` was made with); the outputs are the graph's own."""
-
-    _graphs: dict = {}
-
-    def __init__(self, fn, key):
-        self.fn, self.key = fn, key
-
-    def __call__(self, *args):
-        leaves = list(tensor_leaves(args))
-        if not leaves[0].is_cuda:
-            return self.fn(*args)
-        k = (self.key, leaves[0].device,
-             tuple((t.shape, t.dtype) for t in leaves))
-        graph = self._graphs.get(k)
-        if graph is None:
-            graph = self._graphs[k] = CapturedCall(self.fn, *args)
-        return graph(*args)
 
 
 class LoopCloser:
@@ -67,14 +45,18 @@ class LoopCloser:
 
     def __init__(self, cfg, intr, num_kf: int = 0):
         lc = cfg.loop
-        self._probe = _Replayed(make_loop_probe(
+        self._probe = make_loop_probe(
             cfg, intr, word_bits=lc.word_bits,
             min_separation=lc.min_separation, score_min=lc.score_min,
             min_inliers=lc.min_inliers, max_trans_disc=lc.max_trans_disc,
-            max_rot_disc_deg=lc.max_rot_disc_deg), ("probe", cfg, intr))
-        self._close = _Replayed(
-            make_close_loop(lc.max_iterations, lc.loop_weight),
-            ("close", lc.max_iterations, lc.loop_weight))
+            max_rot_disc_deg=lc.max_rot_disc_deg)
+        self._close = make_close_loop(lc.max_iterations, lc.loop_weight)
+        # what tick calls on a map on CUDA
+        self._probe_cuda = Replayed(self._probe, ("probe", cfg, intr),
+                                    name="loop_probe")
+        self._close_cuda = Replayed(
+            self._close, ("close", lc.max_iterations, lc.loop_weight),
+            name="loop_close")
         self.events: List[dict] = []
         self._pending: List[int] = []  # keyframe ordinals awaiting a probe
         self.start_at(num_kf)
@@ -101,11 +83,14 @@ class LoopCloser:
             ordinal = self._pending.pop(0)
             m = state.map
             dev = m.kf_id.device
+            cuda = dev.type == "cuda"
+            probe = self._probe_cuda if cuda else self._probe
+            close = self._close_cuda if cuda else self._close
             # device scalars made by fills, not host copies
             ord_t = torch.full((), ordinal, dtype=torch.int32, device=dev)
             qid = ord_t - 1
             qslot = torch.remainder(qid, m.capacity_kf)
-            cand, cons = self._probe(m, qslot, qid, ord_t)
+            cand, cons = probe(m, qslot, qid, ord_t)
             ok, cand_id, score, inliers = torch.stack([
                 cons.ok.to(torch.float64),
                 m.kf_id.index_select(0, cand.slot.reshape(1).to(torch.int64))
@@ -114,8 +99,8 @@ class LoopCloser:
                 cons.num_inliers.to(torch.float64)]).cpu().tolist()
             if not ok:
                 continue
-            out, stats = self._close(m, cand.slot, qslot, cons.rel_q,
-                                     cons.rel_t, cons.ok)
+            out, stats = close(m, cand.slot, qslot, cons.rel_q, cons.rel_t,
+                               cons.ok)
             # copies, out of a replayed graph's memory, into the live map
             state = state._replace(map=m._replace(
                 kf_q=out.kf_q.clone(), kf_t=out.kf_t.clone(),

@@ -58,12 +58,21 @@ class ShardGroup:
 
     ``counts[op]`` is [calls, bytes] for each op of ``COLLECTIVES``;
     bytes are those of the whole (unsharded) tensor: the all-reduced
-    tensor, the reduce-scatter's input, the all-gather's output."""
+    tensor, the reduce-scatter's input, the all-gather's output.
+    A collective made from the host counts; a replay of a CUDA graph
+    that holds collectives runs none of this code and counts nothing.
+
+    ``graphs`` keeps the CUDA graphs that hold this group's collectives
+    (``device.Replayed`` caches, as ``global_ba.replayed_global_solve``
+    makes them): clear it before ``destroy_process_group``, since NCCL
+    does not destroy a communicator while a graph of its collectives
+    lives (``spawn`` does)."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
                  pg=None):
         self.rank, self.world, self.device, self.pg = rank, world, device, pg
         self.counts: Dict[str, List[int]] = {}
+        self.graphs: dict = {}
         self.reset_counts()
 
     def __repr__(self):
@@ -179,6 +188,7 @@ def _run_rank(fn, rank, world, device, store_path, timeout_s, args, results):
             out = fn(group, *args)
             dist.barrier()
         finally:
+            group.graphs.clear()
             dist.destroy_process_group()
         results.put((rank, True, pickle.dumps(out)))
     except BaseException as e:  # reported to the parent, which re-raises

@@ -30,11 +30,12 @@ last, so a new solve sees the corrected map.
 
 ``run_global_ba`` refines every keyframe of the ring and its landmarks
 with the guarded global bundle adjustment of ``ba/global_ba.py``, at the
-end of a run (the CLI's ``--global-ba``).
+end of a run (the CLI's ``--global-ba``); on CUDA a solve at a shape
+seen before replays a CUDA graph (``run_global_ba_on_map``).
 
 On CUDA every program the reference jits runs as a CUDA graph
-(``device.LiveGraphs``): the tracking step (``pipeline.
-track_step_into``), the cull, the local BA after a keyframe, the
+(``device.LiveGraphs``, made by ``device.Programs``): the tracking step
+(``pipeline.track_step_into``), the cull, the local BA after a keyframe, the
 relocalization attempt, the fusion of a keyframe (the volume's
 ``integrate``, the atlas's submap start and fuse) and the dense ICP
 solve, each captured at its first call for its tensors, after a
@@ -73,8 +74,7 @@ import torch
 from kbslam_torch.ba.local_ba import (AsyncLocalBA, make_local_ba_into,
                                       stats_record)
 from kbslam_torch.convert import tsdf_to_numpy
-from kbslam_torch.device import (LiveGraphs, assign_state, pick_device,
-                                 upload_into)
+from kbslam_torch.device import Programs, assign_state, pick_device
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.geom.se3 import quat_rotate
 from kbslam_torch.loop.reloc import (make_reloc_step_into, reloc_record,
@@ -154,21 +154,30 @@ def map_point_positions(m) -> np.ndarray:
 
 
 def run_global_ba_on_map(map_state, intr: Intrinsics, ba_cfg, steps: int = 5,
-                         pcg_iters: int = 30, group=None):
+                         pcg_iters: int = 30, group=None, graph: bool = True):
     """A guarded global bundle adjustment over every keyframe of the ring
     (``ba/global_ba.global_ba_solve``: ``steps`` LM rounds, PCG capped at
     ``pcg_iters``), with the oldest real keyframe held fixed. Returns
     (new map state, the per-round costs as floats). One host read of the
     insertion count sizes the problem, and one of the costs ends it.
 
+    On CUDA the solve is one CUDA graph per problem shape
+    (``global_ba.replayed_global_solve``): the first call with a shape
+    solves eagerly, the second captures and replays, later ones replay.
+    A captured graph stays for the life of the process (of the group,
+    over a ``group``), one per window size that came back. On the CPU,
+    or with ``graph=False`` (the yardstick), the solve runs eagerly.
+
     Over a ``group`` (``parallel.dist.ShardGroup``) every rank holds the
     same map, solves its block of the cameras and returns the whole new
     map; the window is a multiple of the world size W (the ring's
     capacity rounded down to one, short windows padded up to one), and a
-    ring of fewer than W keyframes raises ``ValueError``."""
+    ring of fewer than W keyframes raises ``ValueError``. On NCCL the
+    graph holds the solve's collectives; on gloo the solve is eager."""
     from kbslam_torch.ba.global_ba import (from_map_state,
                                            gather_global_data,
-                                           global_ba_solve,
+                                           make_global_solve,
+                                           replayed_global_solve,
                                            shard_global_data, write_back)
 
     world = 1 if group is None else group.world
@@ -183,11 +192,14 @@ def run_global_ba_on_map(map_state, intr: Intrinsics, ba_cfg, steps: int = 5,
     data, slots, real = from_map_state(map_state, intr, ba_cfg, n_cams)
     if group is not None:
         data = shard_global_data(data, group)
-    data, costs = global_ba_solve(data, intr, iters=steps,
-                                  pcg_iters=pcg_iters,
-                                  depth_rows=ba_cfg.depth_residuals,
-                                  huber_delta=ba_cfg.huber_delta,
-                                  group=group)
+    settings = (intr, steps, pcg_iters, ba_cfg.depth_residuals,
+                ba_cfg.huber_delta, group)
+    if data.cam_q.is_cuda and graph:
+        data, costs = replayed_global_solve(*settings)(data)
+        # out of the graph's memory, which the next replay rewrites
+        data = data._replace(mp_pos=data.mp_pos.clone())
+    else:
+        data, costs = make_global_solve(*settings)(data)
     if group is not None:
         data = gather_global_data(data, group)
     return (write_back(map_state, data, slots, real),
@@ -363,10 +375,8 @@ class SLAM(DenseViews):
         self.intr = Intrinsics.from_matrix(K, dist=dist)
         self.ba_mode = ba_mode
         self.use_mask = use_mask
-        self.graphs: dict = {}
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
+        self._programs = Programs(self.device)
+        self.graphs: dict = self._programs.graphs
         # through ``_step``, which a CPU test may replace with a step that
         # draws the reference's minimal sets (``sampler_for_frame``; a
         # graph would replay the first frame's)
@@ -397,7 +407,6 @@ class SLAM(DenseViews):
         self.reloc_events: List[dict] = []
         self._state = init_state(config, self.device)
         self._frame_bufs: dict = {}  # (name, shape, dtype) -> (host, device)
-        self._statics: dict = {}  # (name, shape, dtype) -> device tensor
         self._frame = 0
         self.trajectory: List[np.ndarray] = []   # poses of successes
         self.frame_poses: List[np.ndarray] = []  # per input frame
@@ -448,28 +457,15 @@ class SLAM(DenseViews):
         self.icp_events: List[dict] = []
 
     def _program(self, name, fn):
-        """``fn`` as the shell calls it: on CUDA replayed as CUDA graphs
-        on the shell's stream and pool (``graphs[name]``), on the CPU run
+        """``fn`` as the shell calls it (``device.Programs.program``): on
+        CUDA replayed as CUDA graphs (``graphs[name]``), on the CPU run
         eagerly."""
-        if self.device.type == "cuda":
-            g = self.graphs[name] = LiveGraphs(fn, stream=self._stream,
-                                               pool=self._pool, name=name)
-            return g
-        return fn
+        return self._programs.program(name, fn)
 
     def _load(self, name, array, dtype=torch.float32) -> torch.Tensor:
-        """The static device tensor ``name`` (one per name, shape and
-        dtype, kept across calls: the graphs read it) with the host
-        ``array`` copied in, or filled with it when it is a scalar."""
-        a = np.asarray(array)
-        k = (name, a.shape, dtype)
-        buf = self._statics.get(k)
-        if buf is None:
-            buf = self._statics[k] = torch.empty(a.shape, dtype=dtype,
-                                                 device=self.device)
-        if a.ndim == 0:
-            return buf.fill_(a.item())
-        return upload_into(buf, a)
+        """The static device tensor ``name`` with the host ``array``
+        copied in (``device.Programs.load``)."""
+        return self._programs.load(name, array, dtype)
 
     @property
     def state(self):
@@ -522,9 +518,10 @@ class SLAM(DenseViews):
                 mask_t = bufs[2]
             else:
                 k = ("ones_mask", rgb_t.shape[:2], torch.uint8)
-                mask_t = self._statics.get(k)
+                statics = self._programs.statics
+                mask_t = statics.get(k)
                 if mask_t is None:
-                    mask_t = self._statics[k] = torch.ones(
+                    mask_t = statics[k] = torch.ones(
                         rgb_t.shape[:2], dtype=torch.uint8, device=dev)
         return rgb_t, depth_t, mask_t
 

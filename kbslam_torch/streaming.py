@@ -45,8 +45,22 @@ fail again), and only the last frame of each dispatched chunk is kept
 for it. On CUDA every map change made between replays (a cull, a merge,
 a loop correction, a relocalization insertion) is copied into the
 graph's static buffers (``assign_state``), so the next replay reads it.
-``graph=False`` runs full chunks through the same step eagerly (on the
-card too), the yardstick of the replayed path.
+
+The per-keyframe programs (the cull, the relocalization attempt, and
+the volume's integrate or the atlas's submap start and fuse) are, on
+CUDA, CUDA graphs too (``device.Programs``, by name in ``graphs``),
+captured on those static buffers at their first call, on a stream and
+in a memory pool of the stream's own, and replayed between the chunk
+replays, as the per-frame shell replays them. Whatever changes from call
+to call goes into static device tensors first (``device.Programs.
+load``): the relocalized frame (through pinned memory; its packed mask
+is unpacked inside the graph) and its exclusion id, a fused keyframe's
+depth, pose and id, the atlas slot and the frame and anchor poses the
+atlas fuses with (copies of ring rows, or of the drained pose and the
+stored anchor).
+``graph=False`` runs full chunks and these programs through the same
+functions eagerly (on the card too), the yardstick of the replayed
+path.
 
 Dense mapping (``cfg.dense.enabled``) fuses chunk-late too: ``feed``
 keeps each frame's host depth in a ring keyed by frame index, and each
@@ -57,9 +71,9 @@ fuses submaps as the per-frame shell does, with the keyframe's global id
 from a host count; its frame and anchor poses come from the live ring
 (``_fusion_poses_now``). The depth and the poses go up through pinned
 memory or are copied on the stream, so fusion adds no host sync. Dense
-ICP runs on the per-frame path only (``ValueError``), as in the
-reference: a rescue must act on the frame that failed, and a chunk has
-already committed its frames.
+ICP runs on the per-frame path only (``ValueError``),
+as in the reference: a rescue must act on the frame that failed, and a
+chunk has already committed its frames.
 """
 from __future__ import annotations
 
@@ -69,17 +83,18 @@ import numpy as np
 import torch
 
 from kbslam_torch.ba.local_ba import AsyncLocalBA
-from kbslam_torch.device import graph_capture, upload
+from kbslam_torch.device import Programs, graph_capture
 from kbslam_torch.frontend.image import GRAY_WEIGHTS
 from kbslam_torch.geom.camera import Intrinsics
-from kbslam_torch.loop.reloc import make_reloc_step
+from kbslam_torch.loop.reloc import (make_reloc_step, reloc_record,
+                                     reloc_vector)
 from kbslam_torch.loop.runner import LoopCloser
 from kbslam_torch.mapping import dense, submap
 from kbslam_torch.mapping.cull import make_cull
 from kbslam_torch.pipeline import (OUTPUT_WIDTH, TrackOutput, TrackState,
                                    assign_state, clone_state, make_track_step,
                                    output_rows, row_to_fields)
-from kbslam_torch.slam import DenseViews, check_dense_config, reloc_to_host
+from kbslam_torch.slam import DenseViews, check_dense_config
 
 
 def unpack_mask_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
@@ -135,7 +150,10 @@ class ChunkedStream(DenseViews):
     chunk, drains everything and merges a solve in flight. ``state`` is
     the live tracking state (on CUDA, the graph's static buffers); with
     dense mapping, ``tsdf`` is the volume and ``dense_surface``,
-    ``dense_mesh``, ``render_view`` and ``map_consistency`` read it."""
+    ``dense_mesh``, ``render_view`` and ``map_consistency`` read it.
+    ``graphs`` maps each per-keyframe program's name to its
+    ``device.LiveGraphs`` on CUDA (empty on the CPU and with
+    ``graph=False``)."""
 
     def __init__(self, cfg, intr: Intrinsics, state: TrackState,
                  chunk: int = 8, use_mask: bool = False, seed: int = 0,
@@ -176,7 +194,13 @@ class ChunkedStream(DenseViews):
         self._async = (AsyncLocalBA(cfg.ba, intr) if ba_mode == "async"
                        else None)
         self._graphed = graph
-        self._cull = make_cull(cfg.cull) if cfg.cull.enabled else None
+        # the per-keyframe programs: CUDA graphs on the stream's static
+        # state, replayed between chunk replays (eager with graph=False)
+        self._programs = Programs(self.device, graph)
+        self.graphs: dict = self._programs.graphs
+        program = self._programs.program
+        self._cull = (program("cull", make_cull(cfg.cull)) if cfg.cull.enabled
+                      else None)
         lc = cfg.loop
         # read once on the host: the runner and the fail streak count
         # on from the insertions the given map already holds
@@ -185,10 +209,24 @@ class ChunkedStream(DenseViews):
                       else None)
         self.loop_events: List[dict] = (
             self._loop.events if self._loop is not None else [])
-        self._reloc = (make_reloc_step(
-            cfg, intr, use_mask=use_mask, word_bits=lc.word_bits,
-            score_min=lc.reloc_score_min, min_inliers=lc.reloc_min_inliers,
-            seed=seed) if lc.reloc_after > 0 else None)
+        self._reloc = self._relocalize = None
+        if lc.reloc_after > 0:
+            # the attempt calls the step by name (a CPU test may replace
+            # it) and writes its new state into the stream's
+            self._reloc = make_reloc_step(
+                cfg, intr, use_mask=use_mask, word_bits=lc.word_bits,
+                score_min=lc.reloc_score_min,
+                min_inliers=lc.reloc_min_inliers, seed=seed)
+            packed = self._packed_mask
+
+            def attempt(state, rgb, depth, mask, exclude_from_id):
+                if packed:
+                    mask = unpack_mask_bits(mask, depth.shape[-1])
+                new, r = self._reloc(state, rgb, depth, mask,
+                                     exclude_from_id)
+                assign_state(state, new)
+                return reloc_vector(r, state.map)
+            self._relocalize = program("reloc", attempt)
         self._reloc_after = lc.reloc_after
         self.reloc_events: List[dict] = []
         self._fail_streak = 0
@@ -211,15 +249,28 @@ class ChunkedStream(DenseViews):
         self._dense = d.enabled
         if d.enabled and d.submap_every > 0:
             self.atlas = submap.empty_atlas(d, d.max_submaps, self.device)
-            self._submap_start, self._submap_fuse = submap.make_submap_ops(
-                d, intr, d.max_submaps, scale)
+            start, fuse = submap.make_submap_ops(d, intr, d.max_submaps,
+                                                 scale)
+
+            # the ring slot and the keyframe id are device tensors the
+            # stream loads, so one graph serves every value
+            def start_at(atlas, slot, q, t, kf_id):
+                start(atlas, q, t, kf_id, slot=slot)
+
+            def fuse_at(atlas, slot, depth_raw, q, t, anchor_q, anchor_t):
+                fuse(atlas, depth_raw, q, t, anchor_q, anchor_t, slot=slot)
+
+            self._submap_start = program("submap_start", start_at)
+            self._submap_fuse = program("submap_fuse", fuse_at)
             self._submap_every = d.submap_every
             self._kf_cap = int(state.map.kf_id.shape[0])
             # the policy inserts keyframes at least this many frames apart
             self._min_frame_gap = max(1, int(cfg.policy.min_frame_gap))
         elif d.enabled:
             self.tsdf = dense.empty_tsdf(d, self.device)
-            self._integrate = dense.make_integrate(d, intr, scale)
+            integrate = dense.make_integrate(d, intr, scale)
+            self._integrate = program(
+                "integrate", lambda s, *a: assign_state(s, integrate(s, *a)))
         if d.enabled:
             self._depth_ring: dict = {}   # frame index -> host depth
 
@@ -400,21 +451,30 @@ class ChunkedStream(DenseViews):
 
     def _fuse_kf(self, q, t, depth, kid: int):
         """Fuse one keyframe's host depth, taken at the host pose (q, t),
-        into the dense model; ``kid`` is its global keyframe id. Makes no
-        host sync."""
-        dev = self.device
+        into the dense model; ``kid`` is its global keyframe id. The
+        depth, the pose, the id and the atlas slot go into static device
+        tensors (``device.Programs.load``), which the programs read. Makes
+        no host sync."""
         self._last_kf_view = (np.asarray(q), np.asarray(t), depth, kid)
-        depth = upload(depth, dev)
-        q = upload(np.asarray(q, np.float32), dev)
-        t = upload(np.asarray(t, np.float32), dev)
+        load = self._programs.load
+        depth = load("fuse_depth", depth, torch.int32)
+        q, t = load("fuse_q", q), load("fuse_t", t)
         if self.atlas is None:
-            self.tsdf = self._integrate(self.tsdf, depth, q, t)
+            self._integrate(self.tsdf, depth, q, t)
             return
-        if self._kf_insertions % self._submap_every == 0:
-            self.atlas = self._submap_start(self.atlas, q, t, kid)
+        opens = self._kf_insertions % self._submap_every == 0
+        if opens:
+            self.atlas = self.atlas._replace(count=self.atlas.count + 1)
+        slot = load("submap_slot", self.atlas.active_slot(), torch.int64)
+        if opens:
+            self._submap_start(self.atlas, slot, q, t,
+                               load("kf_id", kid, torch.int32))
             self._active_anchor_kid = kid
-        self.atlas = self._submap_fuse(self.atlas, depth,
-                                       *self._fusion_poses_now(kid, q, t))
+        # the poses into static tensors too, so one graph serves every id
+        static = self._programs.static
+        self._submap_fuse(self.atlas, slot, depth, *(
+            static(f"fuse_pose_{i}", p.shape).copy_(p)
+            for i, p in enumerate(self._fusion_poses_now(kid, q, t))))
         self._kf_insertions += 1
 
     def restore_atlas(self, atlas, kf_insertions: int):
@@ -474,8 +534,7 @@ class ChunkedStream(DenseViews):
         Each map change is copied into the stream's state tensors."""
         a = self._async
         if n_added and self._cull is not None:
-            assign_state(self._state, self._state._replace(
-                map=self._cull(self._state.map)))
+            self._cull(self._state.map)         # in place
             self._map_changes += 1
         if a is not None and a.inflight is not None and (block or a.ready()):
             merged, record = a.merge(self._state.map)
@@ -492,6 +551,20 @@ class ChunkedStream(DenseViews):
                 self._map_changes += 1
         if a is not None and n_added and a.inflight is None:
             a.dispatch(self._state.map)
+
+    def _attempt(self, arrays) -> dict:
+        """One relocalization attempt on the frame's host ``arrays``
+        against keyframes inserted before ``_tracked_kf``: the frame and
+        the exclusion id go into the program's static tensors, and the
+        result comes back in one copy (``loop.reloc.reloc_record``)."""
+        load = self._programs.load
+        return reloc_record(self._relocalize(
+            self._state, load("reloc_rgb", arrays[0], torch.uint8),
+            load("reloc_depth", arrays[1], torch.int32),
+            load("reloc_mask", arrays[2], torch.uint8) if self.use_mask
+            else None,
+            load("reloc_exclude", self._tracked_kf, torch.int32)
+        ).cpu().numpy())
 
     def _maybe_reloc(self):
         """Chunk-late relocalization: when the drained frames end in
@@ -520,17 +593,7 @@ class ChunkedStream(DenseViews):
         frame, arrays = self._probe_frame
         if self._failed_probe == (frame, self._map_changes):
             return      # the same frame on the same map: the same miss
-        dev = self.device
-        rgb, dep = (torch.from_numpy(a).to(dev) for a in arrays[:2])
-        mask = None
-        if self.use_mask:
-            mask = torch.from_numpy(arrays[2]).to(dev)
-            if self._packed_mask:
-                mask = unpack_mask_bits(mask, dep.shape[-1])
-        st, r = self._reloc(self._state, rgb, dep, mask,
-                            exclude_from_id=self._tracked_kf)
-        assign_state(self._state, st)
-        res = reloc_to_host(r, self._state.map)
+        res = self._attempt(arrays)
         if not res["success"]:
             self._failed_probe = (frame, self._map_changes)
             return

@@ -660,3 +660,130 @@ def test_graphed_shell_equals_the_eager_drive(cuda_device, case):
         # one graph each, whichever ring slot it opens or fuses
         assert g["submap_fuse"].replays >= 2
         assert len(g["submap_fuse"].graphs) == len(g["submap_start"].graphs) == 1
+
+
+@pytest.mark.parametrize("submaps", [0, 2], ids=["volume", "atlas"])
+def test_graphed_chunked_programs_equal_graph_false(cuda_device, submaps):
+    """ChunkedStream on the card with its per-keyframe programs as CUDA
+    graphs (the cull, the relocalization attempt and the volume's
+    integrate, or the atlas's submap start and fuse) against the same
+    stream with ``graph=False``: output rows, events, final state and
+    volume or atlas bit-equal; one graph per program, captured once and
+    replayed after (tests/test_torch_stream_programs.py holds the eager
+    programs against a drive of the functions on the CPU)."""
+    from test_torch_stream_programs import _run, _same_rows, _scene
+
+    from kbslam_torch.device import tensor_leaves
+    from kbslam_torch.streaming import ChunkedStream
+
+    cfg, K, rgb, dep = _scene(submaps)
+
+    def run(graph):
+        cs = ChunkedStream(cfg, Intrinsics.from_matrix(K),
+                           init_state(cfg, cuda_device), chunk=4, graph=graph)
+        got = []
+        for i in range(len(rgb)):
+            got += cs.feed(rgb[i], dep[i])
+        return cs, got + cs.flush()
+
+    (cs, got), (ref, ref_got) = run(True), run(False)
+    assert cs.reloc_events and ref.graphs == {}
+    _same_rows(got, ref_got)
+    assert cs.reloc_events == ref.reloc_events
+    assert cs.loop_events == ref.loop_events
+    for a, b in zip(tensor_leaves((cs.state, cs.tsdf, cs.atlas)),
+                    tensor_leaves((ref.state, ref.tsdf, ref.atlas))):
+        assert torch.equal(a, b)
+    names = {"cull", "reloc"} | ({"integrate"} if submaps == 0 else
+                                {"submap_start", "submap_fuse"})
+    assert set(cs.graphs) == names
+    for name, g in cs.graphs.items():
+        assert len(g.graphs) == 1 and g.replays >= 1, name
+    if submaps:
+        assert cs.atlas.count == ref.atlas.count >= 2
+
+
+def _tracked_slam(dev):
+    """SLAM on the card over 20 frames of the 240x320 sequence, BA off,
+    a keyframe every third frame or so."""
+    seq = synthetic.render_sequence(num_frames=20, height=240, width=320)
+    cfg = _cfg240().replace(policy=config.KeyframePolicyConfig(
+        min_frame_gap=3, rotation_threshold_deg=2.0))
+    slam = SLAM(cfg, seq.K, ba_mode="disabled", use_mask=False, device=dev)
+    for i in range(20):
+        slam.process(seq.rgb[i], seq.depth[i])
+    assert slam.num_keyframes >= 4
+    return slam
+
+
+def test_run_global_ba_replays_its_captured_solve(cuda_device):
+    """``SLAM.run_global_ba`` three times from the same map: the first
+    call solves eagerly (the shape's first solve, no capture), the second
+    captures the solve at the map's shape and replays it, the third
+    replays it with no new capture, and all equal the eager solve
+    (``run_global_ba_on_map(graph=False)``) bit for bit."""
+    from kbslam_torch import device
+    from kbslam_torch.pipeline import clone_state
+    from kbslam_torch.slam import run_global_ba_on_map
+
+    slam = _tracked_slam(cuda_device)
+    saved = clone_state(slam.state)
+    ref, ref_costs = run_global_ba_on_map(saved.map, slam.intr,
+                                          slam.config.ba, graph=False)
+    for call in range(3):
+        slam.state = saved
+        captures = device.captures["global_ba"]
+        replays = device.replays["global_ba"]
+        costs = slam.run_global_ba()
+        assert costs == ref_costs
+        for name in ("kf_q", "kf_t", "mp_pos"):
+            assert torch.equal(getattr(slam.state.map, name),
+                               getattr(ref, name)), (call, name)
+        assert device.replays["global_ba"] == replays + (call > 0)
+        assert device.captures["global_ba"] == captures + (call == 1)
+
+
+def _nccl_graphed_rank(group):
+    """One rank of an NCCL group: the synthetic global problem, camera-
+    and landmark-sharded, solved by its captured graph
+    (``replayed_global_solve``, the collectives inside) three times in a
+    process that has run no solve before (eager, capture and replay,
+    replay), then eagerly."""
+    from kbslam_torch import device
+    from kbslam_torch.ba import global_ba as gba
+
+    data, intr, _ = gba.make_synthetic_global_problem(
+        np.random.default_rng(0), group.device)
+    res = {}
+    for name, ls in (("cameras", False), ("landmarks", True)):
+        shard = gba.shard_global_data(data, group)
+        settings = (intr, 4, 25, False, 1.0, group, ls)
+        graphed = gba.replayed_global_solve(*settings)
+        before = device.captures["global_ba"]
+        runs = []
+        for _ in range(3):
+            out, costs = graphed(shard)
+            runs.append([t.cpu() for t in list(out) + [costs]])
+        out, costs = gba.make_global_solve(*settings)(shard)
+        res[name] = dict(eager=[t.cpu() for t in list(out) + [costs]],
+                         runs=runs,
+                         captures=device.captures["global_ba"] - before)
+    res["group_graphs"] = len(group.graphs)
+    return res
+
+
+def test_nccl_group_of_one_captures_the_sharded_solve(cuda_device):
+    """An NCCL group of one rank: the camera- and the landmark-sharded
+    solve captured with their collectives (one capture each, kept in the
+    group's ``graphs``, which ``spawn`` clears before it destroys the
+    group) at their second call and replayed, every call bit-equal to the
+    eager sharded solve."""
+    from kbslam_torch.parallel import dist
+
+    (res,) = dist.spawn(_nccl_graphed_rank, 1, "cuda", timeout_s=300)
+    assert res.pop("group_graphs") == 2
+    for name in ("cameras", "landmarks"):
+        r = res[name]
+        assert r["captures"] == 1, name
+        for run in r["runs"]:
+            assert all(torch.equal(a, b) for a, b in zip(run, r["eager"]))
