@@ -1,0 +1,13 @@
+"""``track_device_ms``: kernel time of one replay of the tracking step
+(the first graph a frame replays, ``SLAM.graphs["track"]``), the median
+over traced frames."""
+from slambench.harness.report import median
+
+
+def read(layer):
+    p = layer.get("profile")
+    if p is None:
+        return None
+    v = [s.graph_launches()[0].device_ms for s in p.spans
+         if s.kind == "frame" and s.graph_launches()]
+    return median(v) if v else None
