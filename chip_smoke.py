@@ -739,7 +739,7 @@ def slice_phase(dev, seq, smi):
     from kbslam_torch import config
     from kbslam_torch.eval import trajectory
     from kbslam_torch.ops import patches as patch_ops
-    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.utils.profiling import sync_sites
     from kbslam_torch.slam import SLAM
 
     cfg = config.SLAMConfig()
@@ -808,7 +808,7 @@ def default_path_phase(dev, seq, smi):
     frame without a solve, the kernels' launch counts)."""
     from kbslam_torch import config
     from kbslam_torch.ops import patches as patch_ops
-    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.utils.profiling import sync_sites
     from kbslam_torch.slam import SLAM
 
     cfg = config.SLAMConfig()
@@ -1468,7 +1468,7 @@ def probe_close_vs_cpu(slam, dev):
     from kbslam_torch.loop.detect import make_loop_probe
     from kbslam_torch.loop.runner import LoopCloser
     from kbslam_torch.mapping.state import MapState
-    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.utils.profiling import sync_sites
 
     cfg, lc = slam.config, slam.config.loop
     m = slam.state.map
@@ -1792,7 +1792,7 @@ def reloc_phase(dev, smi) -> int:
     # counted: only the read may wait; eagerly on a copy of the final
     # state, then replayed on the shell's live state
     from kbslam_torch.loop.reloc import make_reloc_step, reloc_record
-    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.utils.profiling import sync_sites
     from kbslam_torch.slam import reloc_to_host
     from kbslam_torch.streaming import clone_state
 
@@ -1942,7 +1942,7 @@ def chunk_loop_phase(dev, smi, pace):
     # a cull on a copy of the final map, every host sync counted
     from kbslam_torch.mapping.cull import make_cull
     from kbslam_torch.mapping.state import device_copy
-    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.utils.profiling import sync_sites
 
     cull = make_cull(cfg.cull)
     cull(device_copy(cs.state.map))
@@ -2053,7 +2053,7 @@ def dense_phase(dev, seq, smi, pace) -> int:
     from kbslam_torch.io.checkpoint import load_checkpoint_tsdf, save_checkpoint
     from kbslam_torch.mapping import dense, mesh, raycast
     from kbslam_torch.pipeline import init_state
-    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.utils.profiling import sync_sites
     from kbslam_torch.slam import SLAM
     from kbslam_torch.streaming import ChunkedStream
 
@@ -2530,7 +2530,7 @@ def submap_phase(dev, seq, smi, pace) -> int:
         # a fusion that captures a graph (the first start and the first
         # fuse) may sync in torch's capture entry; nothing else may
         from kbslam_torch import device
-        from kbslam_torch.profile_step import sync_sites
+        from kbslam_torch.utils.profiling import sync_sites
 
         def run(*args):
             before = sum(device.captures.values())
@@ -3414,7 +3414,7 @@ def io_cli_per_frame(dev, smi, traj_dir):
     """(21a) The CLI per frame at 640x480 with BA and the dense volume,
     viewer on against off; returns the describe launches."""
     from kbslam_torch.mapping import raycast
-    from kbslam_torch.profile_step import sync_sites
+    from kbslam_torch.utils.profiling import sync_sites
     from kbslam_torch.slam import SLAM
     from kbslam_torch.viz import rerun_viewer
 

@@ -9,6 +9,13 @@ the tracking step keeps writing in place.
 After the solve a window landmark is pruned when it has fewer than 2
 window observations, fewer than 2 gated-in observations, or a gated-in
 share below 0.4; pruning clears the window keyframes' references only.
+
+``local_ba`` marks its stage edges (``utils.profiling.mark``): ``setup``
+(``build_problem`` and ``compact_problem``), ``lm``
+(``solve_window_compact``, every one of its ``max_iterations`` trips) and
+``writeback`` (the row writes and the pruning). A shell that reads a
+solve's stats counts ``ba.live_trips`` (the trips before the solve was
+done) and ``ba.trips_run`` (``count_trips``).
 """
 from __future__ import annotations
 
@@ -20,9 +27,10 @@ from kbslam_torch.ba.compact import compact_problem
 from kbslam_torch.ba.compact_lm import solve_window_compact
 from kbslam_torch.ba.merge import merge_ba_result
 from kbslam_torch.ba.problem import build_problem
-from kbslam_torch.device import CapturedCall, assign_state
+from kbslam_torch.device import CapturedCall, assign_state, replay
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.mapping.state import MapState, device_copy, scatter_rows
+from kbslam_torch.utils import profiling
 
 
 class BAStats(NamedTuple):
@@ -45,12 +53,23 @@ def stats_record(v, wall_ms=None) -> dict:
                 num_pruned=int(v[4]), wall_ms=wall_ms)
 
 
+def count_trips(record: dict, cfg) -> None:
+    """The recorder's LM trip counters for one solve's host record: the
+    live trips (``BAStats.iterations``) and the trips run (all of
+    ``cfg.max_iterations``, masked after the solve is done)."""
+    profiling.count("ba.live_trips", record["iterations"])
+    profiling.count("ba.trips_run", cfg.max_iterations)
+
+
 def local_ba(state: MapState, intr: Intrinsics,
              cfg) -> Tuple[MapState, BAStats]:
+    profiling.mark(None, state.kf_q)
     prob = build_problem(state, intr, cfg)
     cp = compact_problem(prob, state.mp_pos, cfg.compact_obs,
                          cfg.compact_landmarks)
+    profiling.mark("setup", state.kf_q)
     sol = solve_window_compact(prob, cp, intr, cfg)
+    profiling.mark("lm", state.kf_q)
 
     ran = state.num_kf >= 2    # nothing to optimize below two keyframes
 
@@ -86,6 +105,7 @@ def local_ba(state: MapState, intr: Intrinsics,
         accepted=sol.accepted,
         num_pruned=torch.sum(drop.to(torch.int32)),
     )
+    profiling.mark("writeback", state.kf_q)
     return state._replace(kf_q=kf_q, kf_t=kf_t, mp_pos=mp_pos,
                           kf_mp=kf_mp), stats
 
@@ -122,7 +142,7 @@ class GraphedLocalBA:
             result, stats = local_ba(m, intr, cfg)
             return result, stats, stats_vector(stats)
 
-        self._captured = CapturedCall(solve, like)
+        self._captured = CapturedCall(solve, like, name="async_ba")
         self.input = self._captured.inputs[0]
         self.result, self.stats, self.stats_vector = self._captured.outputs
 
@@ -131,7 +151,7 @@ class GraphedLocalBA:
         return self.input
 
     def solve(self) -> Tuple[MapState, BAStats]:
-        self._captured.graph.replay()
+        replay(self._captured.graph)
         return self.result, self.stats
 
 
@@ -162,7 +182,8 @@ class AsyncLocalBA:
     ``ready`` polls the event and never blocks. ``merge`` makes the
     current stream wait for the solve, merges its result into the live
     map it is given (``ba.merge``), waits on the host for the stats and
-    returns the new map and the solve's record."""
+    returns the new map and the solve's record (its trips counted,
+    ``count_trips``)."""
 
     def __init__(self, cfg, intr: Intrinsics):
         self._cfg, self._intr = cfg, intr
@@ -211,4 +232,6 @@ class AsyncLocalBA:
         if f.event is not None:
             f.event.synchronize()
         self.inflight = None
-        return merged, stats_record(f.stats_host.numpy())
+        record = stats_record(f.stats_host.numpy())
+        count_trips(record, self._cfg)
+        return merged, record

@@ -36,13 +36,20 @@ validation errors and summary JSON keys (and ``--device``, ``--seed``):
   reads: the results equal those of ``--viewer none``;
 - ``--mask``, ``--dist``, ``--depth-edge-rel``, ``--save-trajectory``,
   ``--save-checkpoint`` (with the volume or the atlas), ``--resume``
-  (restores it) and ``--eval``.
+  (restores it) and ``--eval``;
+- ``--trace DIR``: where the time goes. The run goes under
+  ``utils.profiling.device_trace``, which writes ``DIR/trace.json`` (a
+  Chrome trace in which the recorder's ``kbslam.*`` spans sit beside the
+  kernels); the recorder's records go to ``DIR/spans.json``, and a table
+  of its spans, device stages and counters (count, total, p50, max) to
+  standard error.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -292,6 +299,10 @@ def main(argv=None):
     ap.add_argument("--depth-edge-rel", type=float, default=0.0, metavar="R",
                     help="range-aware rim-gate term: spread threshold = "
                     "max(0.15, R*z^2); 0 = off")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="run under torch.profiler: DIR/trace.json, the "
+                    "recorder's DIR/spans.json and a table of its spans, "
+                    "stages and counters on stderr")
     args = ap.parse_args(argv)
     if args.chunk and args.ba == "on":
         ap.error("--chunk batches frames per dispatch, so synchronous "
@@ -331,10 +342,21 @@ def main(argv=None):
     if args.loop or args.reloc:
         cfg = cfg.replace(loop=dataclasses.replace(
             cfg.loop, enabled=bool(args.loop), reloc_after=args.reloc))
-    if args.chunk:
-        _run_chunked(args, cfg, K, frames, dist)
+    run = _run_chunked if args.chunk else _run_per_frame
+    if not args.trace:
+        run(args, cfg, K, frames, dist)
         return
+    from kbslam_torch.utils import profiling
 
+    with profiling.device_trace(args.trace, args.device):
+        run(args, cfg, K, frames, dist)
+    with open(os.path.join(args.trace, "spans.json"), "w") as f:
+        json.dump(profiling.records(), f)
+    print(profiling.report(), file=sys.stderr)
+
+
+def _run_per_frame(args, cfg, K, frames, dist):
+    """Tracking frame by frame through ``slam.SLAM``."""
     from kbslam_torch.slam import SLAM
 
     mode = {"on": "on_keyframe", "async": "async", "off": "disabled"}[args.ba]

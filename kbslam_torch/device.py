@@ -1,9 +1,10 @@
 """Device selection, float32 matmul precision, host uploads and CUDA
-graph capture: ``CapturedCall`` (one call captured over static inputs),
-``LiveGraphs`` (a program replayed on the tensors it was captured on),
-``Replayed`` (one captured call per argument shapes, from the second
-call with them) and ``Programs`` (a shell's named programs, with the
-static tensors they read).
+graph capture and replay (``graph_capture``, ``replay``):
+``CapturedCall`` (one call captured over static inputs), ``LiveGraphs``
+(a program replayed on the tensors it was captured on), ``Replayed``
+(one captured call per argument shapes, from the second call with them)
+and ``Programs`` (a shell's named programs, with the static tensors
+they read).
 
 The port runs on the card: without a device name, ``pick_device``
 returns the current CUDA device and raises when there is none. The CPU
@@ -24,6 +25,8 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from kbslam_torch.utils import profiling
 
 
 def pick_device(name: Optional[Union[str, torch.device]] = None
@@ -56,7 +59,8 @@ def upload_into(dst: torch.Tensor, array) -> torch.Tensor:
 
 @contextlib.contextmanager
 def graph_capture(graph: "torch.cuda.CUDAGraph",
-                  stream: Optional["torch.cuda.Stream"] = None, pool=None):
+                  stream: Optional["torch.cuda.Stream"] = None, pool=None,
+                  name: Optional[str] = None):
     """``torch.cuda.graph(graph, stream=stream)`` with Python's garbage
     collector run before the capture and switched off during it. A dead
     reference cycle that holds another CUDA graph would otherwise be
@@ -66,16 +70,32 @@ def graph_capture(graph: "torch.cuda.CUDAGraph",
     picks the cuBLAS workspace the graph bakes in, which torch keeps per
     stream: graphs that replay at the same time need streams of their
     own. ``pool`` is a memory pool shared with other graphs (see
-    ``LiveGraphs``)."""
+    ``LiveGraphs``).
+
+    Every graph gets its stage marks here (``utils.profiling``): a mark
+    first and last, and each ``profiling.mark`` its function reaches, in
+    ``graph.marks`` (a ``profiling.Marks`` named ``name``), which
+    ``replay`` reads."""
+    dev = (stream.device if stream is not None
+           else torch.device("cuda", torch.cuda.current_device()))
+    graph.marks = profiling.Marks(name or "graph", dev)
     gc.collect()
     was_enabled = gc.isenabled()
     gc.disable()
     try:
         with torch.cuda.graph(graph, pool=pool, stream=stream):
-            yield
+            with profiling.capturing(graph.marks):
+                yield
     finally:
         if was_enabled:
             gc.enable()
+
+
+def replay(graph: "torch.cuda.CUDAGraph") -> None:
+    """Replay a graph of ``graph_capture`` on the current stream; with the
+    recorder on, queue a copy of its stage marks after it."""
+    graph.replay()
+    graph.marks.read()
 
 
 def tensor_leaves(tree):
@@ -105,10 +125,11 @@ class CapturedCall:
     warm-up and the capture (default: a new one for the warm-up and
     torch's capture stream), ``pool`` a memory pool shared with other
     graphs. ``warm=False`` leaves the warm-up out, where the caller has
-    just run ``fn`` eagerly at these shapes on this device."""
+    just run ``fn`` eagerly at these shapes on this device. ``name``
+    names the graph's stage marks (``graph_capture``)."""
 
     def __init__(self, fn, *args, live: bool = False, stream=None,
-                 pool=None, warm: bool = True):
+                 pool=None, warm: bool = True, name: Optional[str] = None):
         self.inputs = args if live else _clone(args)
         if warm:
             dev = next(tensor_leaves(args)).device
@@ -119,7 +140,7 @@ class CapturedCall:
                 fn(*(_clone(args) if live else self.inputs))
             cur.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with graph_capture(self.graph, stream=stream, pool=pool):
+        with graph_capture(self.graph, stream=stream, pool=pool, name=name):
             self.outputs = fn(*self.inputs)
 
     def load(self, *args):
@@ -129,7 +150,7 @@ class CapturedCall:
 
     def __call__(self, *args):
         self.load(*args)
-        self.graph.replay()
+        replay(self.graph)
         return self.outputs
 
 
@@ -184,10 +205,10 @@ class LiveGraphs:
             t0 = time.perf_counter()
             g = self.graphs[k] = CapturedCall(self.fn, *args, live=True,
                                               stream=self.stream,
-                                              pool=self.pool)
+                                              pool=self.pool, name=self.name)
             self.capture_s.append(time.perf_counter() - t0)
             captures[self.name] += 1
-        g.graph.replay()
+        replay(g.graph)
         self.replays += 1
         replays[self.name] += 1
         return g.outputs
@@ -233,7 +254,8 @@ class Replayed:
             self._cache[k] = _WARMED
             return self.fn(*args)
         if call is _WARMED:
-            call = self._cache[k] = CapturedCall(self.fn, *args, warm=False)
+            call = self._cache[k] = CapturedCall(self.fn, *args, warm=False,
+                                                 name=self.name)
             captures[self.name] += 1
         replays[self.name] += 1
         return call(*args)

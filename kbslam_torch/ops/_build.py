@@ -82,6 +82,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kbslam_describe_keypoints.argtypes = [p, p, p, p, p, p, p,
                                               i, i, i, i, i, i, p]
     lib.kbslam_describe_keypoints.restype = i
+    lib.kbslam_stage_mark.argtypes = [p, i, p]
+    lib.kbslam_stage_mark.restype = i
     lib.kbslam_cuda_error_string.argtypes = [i]
     lib.kbslam_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -48,7 +48,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from kbslam_torch.device import LiveGraphs, graph_capture
+from kbslam_torch.device import LiveGraphs, graph_capture, replay
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.mapping.state import MapState
 from kbslam_torch.parallel.dist import ShardGroup, block_tree, gather_tree
@@ -58,6 +58,7 @@ from kbslam_torch.pipeline import (PendingInsert, TrackOutput, TrackState,
                                    track_step_batched)
 from kbslam_torch.pnp.ransac import hash_sampler
 from kbslam_torch.streaming import assign_state, clone_state
+from kbslam_torch.utils import profiling
 
 
 def batched_init_state(cfg, num_streams: int, device) -> TrackState:
@@ -96,90 +97,6 @@ def stream_state(state: TrackState, i: int) -> TrackState:
                       *(t[i] for t in state[1:]))
 
 
-class _PerStream:
-    """Runs ``body(i, state_i, *inputs) -> (new state_i, outputs_i)`` for
-    every stream i of a stacked state, and writes each new state into
-    row i. ``inputs`` are the call's stream-batched tensors.
-
-    On CUDA the first call binds the given state as the storage of every
-    later call (a call with another state copies it in first) and gives
-    every stream a side stream of its own; on it, the body is warmed up
-    on a copy of the stream's state and then captured. A graph bakes in
-    the library workspaces (cuBLAS's) of the stream it was captured on,
-    so graphs that replay at the same time must not share one. A call
-    then replays the graphs. Outputs of a replay live in the graphs'
-    memory until the next call."""
-
-    def __init__(self, body: Callable, num_streams: int):
-        self._body = body
-        self.num_streams = num_streams
-        self._state = None
-        self._inputs: List[torch.Tensor] = []
-        self._graphs: List[torch.cuda.CUDAGraph] = []
-        self._outputs: list = []
-        self._side: List[torch.cuda.Stream] = []
-        self.replays = 0    # calls that replayed the graphs
-
-    def __call__(self, state: TrackState, inputs, serial: bool = False):
-        dev = state.pose_q.device
-        if dev.type != "cuda":
-            outs = []
-            for i in range(self.num_streams):
-                st_i = stream_state(state, i)
-                new, out = self._body(i, st_i, *inputs)
-                assign_state(st_i, new)
-                outs.append(out)
-            return state, outs
-        if not self._graphs:
-            self._capture(state, inputs)
-        else:
-            assign_state(self._state, state)
-            for dst, src in zip(self._inputs, inputs):
-                dst.copy_(src, non_blocking=True)
-        self._replay(serial)
-        self.replays += 1
-        return self._state, self._outputs
-
-    def _capture(self, state, inputs):
-        dev = state.pose_q.device
-        self._state = state
-        self._inputs = [x.to(dev, copy=True) for x in inputs]
-        cur = torch.cuda.current_stream(dev)
-        self._side = [torch.cuda.Stream(dev) for _ in range(self.num_streams)]
-        for i, side in enumerate(self._side):
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                self._body(i, clone_state(stream_state(state, i)),
-                           *self._inputs)
-            cur.wait_stream(side)
-        for i, side in enumerate(self._side):
-            graph = torch.cuda.CUDAGraph()
-            with graph_capture(graph, stream=side):
-                st_i = stream_state(state, i)
-                new, out = self._body(i, st_i, *self._inputs)
-                assign_state(st_i, new)
-            self._graphs.append(graph)
-            self._outputs.append(out)
-
-    def _replay(self, serial: bool):
-        if serial:
-            for g in self._graphs:
-                g.replay()
-            return
-        cur = torch.cuda.current_stream()
-        start = torch.cuda.Event()
-        start.record(cur)
-        done = []
-        for g, side in zip(self._graphs, self._side):
-            side.wait_event(start)
-            with torch.cuda.stream(side):
-                g.replay()
-            done.append(torch.cuda.Event())
-            done[-1].record(side)
-        for ev in done:
-            cur.wait_event(ev)
-
-
 class _Batched:
     """Runs ``body(state, *inputs) -> (new state, outputs)`` on a
     stream-batched state and writes the new state into it.
@@ -189,7 +106,12 @@ class _Batched:
     the inputs into static buffers; ``body`` is then one CUDA graph on
     them (``LiveGraphs``: a warm-up on copies, then the capture, both on
     a stream of its own), which every call replays. Outputs are returned
-    as copies. On the CPU ``body`` runs eagerly on the given state."""
+    as copies. On the CPU ``body`` runs eagerly on the given state.
+
+    A call is traced (``utils.profiling``): ``multistream.step``, with the
+    index of the call (``calls`` before it), and inside it on CUDA
+    ``multistream.upload`` (the inputs into the static buffers) and
+    ``multistream.replay`` (the replay and the outputs' copies)."""
 
     def __init__(self, body: Callable, name: str):
         self._body = body
@@ -197,6 +119,7 @@ class _Batched:
         self._state = None
         self._inputs: List[torch.Tensor] = []
         self.graphs: Optional[LiveGraphs] = None
+        self.calls = 0
 
     @property
     def replays(self) -> int:
@@ -208,20 +131,28 @@ class _Batched:
         return out
 
     def __call__(self, state: TrackState, inputs):
+        with profiling.span("multistream.step", self.calls):
+            self.calls += 1
+            return self._call(state, inputs)
+
+    def _call(self, state: TrackState, inputs):
         dev = state.pose_q.device
         if dev.type != "cuda":
             return state, self._run(state, *inputs)
-        if self.graphs is None:
-            self._state = state
-            self._inputs = [x.to(dev, copy=True) for x in inputs]
-            self.graphs = LiveGraphs(self._run, stream=torch.cuda.Stream(dev),
-                                     name=self._name)
-        else:
-            assign_state(self._state, state)
-            for dst, src in zip(self._inputs, inputs):
-                dst.copy_(src, non_blocking=True)
-        out = self.graphs(self._state, *self._inputs)
-        copies = [t.clone() for t in out]
+        with profiling.span("multistream.upload"):
+            if self.graphs is None:
+                self._state = state
+                self._inputs = [x.to(dev, copy=True) for x in inputs]
+                self.graphs = LiveGraphs(self._run,
+                                         stream=torch.cuda.Stream(dev),
+                                         name=self._name)
+            else:
+                assign_state(self._state, state)
+                for dst, src in zip(self._inputs, inputs):
+                    dst.copy_(src, non_blocking=True)
+        with profiling.span("multistream.replay"):
+            out = self.graphs(self._state, *self._inputs)
+            copies = [t.clone() for t in out]
         return self._state, (type(out)(*copies) if hasattr(out, "_fields")
                              else tuple(copies))
 
@@ -392,7 +323,7 @@ class _PerStream:
             cur.wait_stream(side)
         for i, side in enumerate(self._side):
             graph = torch.cuda.CUDAGraph()
-            with graph_capture(graph, stream=side):
+            with graph_capture(graph, stream=side, name="perstream"):
                 st_i = stream_state(state, i)
                 new, out = self._body(i, st_i, *self._inputs)
                 assign_state(st_i, new)
@@ -402,7 +333,7 @@ class _PerStream:
     def _replay(self, serial: bool):
         if serial:
             for g in self._graphs:
-                g.replay()
+                replay(g)
             return
         cur = torch.cuda.current_stream()
         start = torch.cuda.Event()
@@ -411,7 +342,7 @@ class _PerStream:
         for g, side in zip(self._graphs, self._side):
             side.wait_event(start)
             with torch.cuda.stream(side):
-                g.replay()
+                replay(g)
             done.append(torch.cuda.Event())
             done[-1].record(side)
         for ev in done:

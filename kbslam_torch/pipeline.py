@@ -30,6 +30,12 @@ counterpart of the reference's donated state: on CUDA the per-frame
 shell replays it as one CUDA graph (``device.LiveGraphs``) on that state
 and on static frame buffers, and ``output_rows`` packs its outputs into
 the one row the host reads per frame.
+
+Both steps mark their stage edges (``utils.profiling.mark``): ``frontend``
+ends after ``extract_frame``, ``match`` after the top-M compaction,
+``pnp`` after PnP-RANSAC, its polish and the inlier ratio, and ``map`` at
+the end (policy, insertion, landmark fusion). Inside a CUDA graph each
+mark is a one-thread kernel that times the edge on the device.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from kbslam_torch.matching.hamming import MatchResult, knn2_ratio_match
 from kbslam_torch.ops.incidence import incidence_gather
 from kbslam_torch.pnp.ransac import (Sampler, hash_sampler, ransac_pnp,
                                     ransac_pnp_batched)
+from kbslam_torch.utils.profiling import mark
 
 
 class TrackState(NamedTuple):
@@ -244,8 +251,10 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
     ``defer_insert`` the map is left as it is and a third element, the
     ``PendingInsert``, is returned."""
     m = state.map
+    mark(None, rgb)
     empty = m.is_empty()
     feats, depth_kp = extract_frame(rgb, depth, mask, intr, cfg)
+    mark("frontend", rgb)
 
     # --- match against the last keyframe(s) ----------------------------------
     slot = m.last_slot()
@@ -292,6 +301,7 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
     pts2d = train_m[:, :2]
     depth_curr = torch.where(sel_valid, train_m[:, 2], 0.0)
     pts3d_obs = unproject(intr, pts2d, depth_curr)
+    mark("match", rgb)
 
     # --- PnP-RANSAC -----------------------------------------------------------
     pnp = ransac_pnp(pts3d_m, pts2d, sel_valid, intr, cfg.pnp, sampler,
@@ -308,6 +318,7 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
     num_inliers_all = torch.sum(inl_all.to(torch.int32))
     ratio_all = num_inliers_all.to(torch.float32) / torch.clamp(
         num_matches.to(torch.float32), min=1.0)
+    mark("pnp", rgb)
 
     last_kf_pose = SE3(take_row(m.kf_q, slot), take_row(m.kf_t, slot))
     if NK == 1:
@@ -356,6 +367,7 @@ def track_step(state: TrackState, rgb: torch.Tensor, depth: torch.Tensor,
         anchor_q=take_row(new_map.kf_q, a_slot),
         anchor_t=take_row(new_map.kf_t, a_slot),
     )
+    mark("map", rgb)
     if defer_insert:
         return new_state, out, pending
     return new_state, out
@@ -375,9 +387,11 @@ def track_step_batched(state: TrackState, rgb: torch.Tensor,
     m = state.map
     Sn = m.num_kf.shape[0]
     dev = m.num_kf.device
+    mark(None, rgb)
     empty = m.is_empty()                                        # [S]
     feats, depth_kp = extract_frame(rgb, depth, mask, intr, cfg,
                                     batched=True)
+    mark("frontend", rgb)
 
     # --- match against the last keyframe(s) ----------------------------------
     slot = m.last_slot()                                        # [S]
@@ -426,6 +440,7 @@ def track_step_batched(state: TrackState, rgb: torch.Tensor,
     pts2d = train_m[..., :2]
     depth_curr = torch.where(sel_valid, train_m[..., 2], 0.0)
     pts3d_obs = unproject(intr, pts2d, depth_curr)
+    mark("match", rgb)
 
     # --- PnP-RANSAC -----------------------------------------------------------
     pnp = ransac_pnp_batched(pts3d_m, pts2d, sel_valid, intr, cfg.pnp,
@@ -443,6 +458,7 @@ def track_step_batched(state: TrackState, rgb: torch.Tensor,
     num_inliers_all = torch.sum(inl_all.to(torch.int32), dim=-1)
     ratio_all = num_inliers_all.to(torch.float32) / torch.clamp(
         num_matches.to(torch.float32), min=1.0)
+    mark("pnp", rgb)
 
     last_kf_pose = SE3(take_rows(m.kf_q, slot), take_rows(m.kf_t, slot))
     if NK == 1:
@@ -494,6 +510,7 @@ def track_step_batched(state: TrackState, rgb: torch.Tensor,
         anchor_q=take_rows(new_map.kf_q, a_slot),
         anchor_t=take_rows(new_map.kf_t, a_slot),
     )
+    mark("map", rgb)
     if defer_insert:
         return new_state, out, pending
     return new_state, out

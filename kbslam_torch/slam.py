@@ -62,6 +62,16 @@ default path keeps its one host sync per frame. The dense ICP tick reads
 its result once per solve, and against the atlas first reads the map
 ring to choose its window of submaps (``submap.recent_slots_with_poses``,
 host-side as in the reference).
+
+``process`` is traced (``utils.profiling``): the span ``shell.process``
+(with the frame's index) and inside it ``shell.upload``, ``shell.track``
+(the replay's launch and the output wait), ``shell.cull``, ``shell.ba``,
+``shell.ticks`` (relocalization, ICP, fusion, the loop) and
+``shell.record``; the counter ``shell.syncs``, one per blocking host read
+(the track output, a solve's stats, a relocalization's or an ICP solve's
+result, an asynchronous solve's merge), and a solve's LM trips. With the
+recorder on, the frame's upload is marked on the device (``upload``,
+between two marks of a ``profiling.Marks`` named ``shell``).
 """
 from __future__ import annotations
 
@@ -71,8 +81,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from kbslam_torch.ba.local_ba import (AsyncLocalBA, make_local_ba_into,
-                                      stats_record)
+from kbslam_torch.ba.local_ba import (AsyncLocalBA, count_trips,
+                                      make_local_ba_into, stats_record)
 from kbslam_torch.convert import tsdf_to_numpy
 from kbslam_torch.device import Programs, assign_state, pick_device
 from kbslam_torch.geom.camera import Intrinsics
@@ -84,6 +94,7 @@ from kbslam_torch.mapping import dense, icp, mesh, raycast, submap
 from kbslam_torch.mapping.cull import make_cull
 from kbslam_torch.pipeline import (init_state, make_track_step, output_rows,
                                    row_to_fields, track_step_into)
+from kbslam_torch.utils import profiling
 
 
 def pose_T(q, t) -> np.ndarray:
@@ -407,6 +418,7 @@ class SLAM(DenseViews):
         self.reloc_events: List[dict] = []
         self._state = init_state(config, self.device)
         self._frame_bufs: dict = {}  # (name, shape, dtype) -> (host, device)
+        self._upload_marks = None    # a profiling.Marks on CUDA, once on
         self._frame = 0
         self.trajectory: List[np.ndarray] = []   # poses of successes
         self.frame_poses: List[np.ndarray] = []  # per input frame
@@ -496,7 +508,7 @@ class SLAM(DenseViews):
         frame = [np.asarray(rgb, np.uint8), np.asarray(depth, np.int32)]
         if self.use_mask and mask is not None:
             frame.append(np.asarray(mask))
-        bufs = []
+        pairs = []
         for name, a in zip(("rgb", "depth", "mask"), frame):
             k = (name, a.shape, a.dtype)
             if k not in self._frame_bufs:
@@ -508,9 +520,13 @@ class SLAM(DenseViews):
                     self._frame_bufs[k] = (h, h)
             h, b = self._frame_bufs[k]
             np.copyto(h.numpy(), a)
+            pairs.append((h, b))
+        bufs = [b for _, b in pairs]
+        self._mark_upload(None, bufs[0])
+        for h, b in pairs:
             if b is not h:
                 b.copy_(h, non_blocking=True)
-            bufs.append(b)
+        self._mark_upload("upload", bufs[0])
         rgb_t, depth_t = bufs[:2]
         mask_t = None
         if self.use_mask:
@@ -525,29 +541,90 @@ class SLAM(DenseViews):
                         rgb_t.shape[:2], dtype=torch.uint8, device=dev)
         return rgb_t, depth_t, mask_t
 
+    def _mark_upload(self, stage, like):
+        """A mark of the upload's copies: on CUDA, with the recorder on, in
+        the shell's own ``profiling.Marks`` (read after the second), on
+        the CPU the host clock's (``profiling.mark``)."""
+        if not like.is_cuda:
+            profiling.mark(stage, like)
+            return
+        if not profiling.enabled():
+            return
+        if self._upload_marks is None:
+            self._upload_marks = profiling.Marks("shell", self.device, 2)
+        m = self._upload_marks
+        if stage is None:
+            m.labels.clear()
+        elif len(m.labels) != 1:
+            return      # the recorder came on between the two marks
+        m.add(stage)
+        if stage is not None:
+            m.read()
+
     def process(self, rgb, depth, mask=None) -> dict:
         """Track one frame (rgb [H, W, 3] uint8, depth [H, W] uint16)."""
-        args = self._upload(rgb, depth, mask)
+        with profiling.span("shell.process", self._frame):
+            return self._process(rgb, depth, mask)
+
+    def _process(self, rgb, depth, mask) -> dict:
+        span, count = profiling.span, profiling.count
+        with span("shell.upload"):
+            args = self._upload(rgb, depth, mask)
         t0 = time.perf_counter()
-        o = row_to_fields(self._track(self._state, *args)[0].cpu().numpy())
+        with span("shell.track"):
+            o = row_to_fields(self._track(self._state, *args)[0].cpu().numpy())
+            count("shell.syncs")
 
         if self._cull is not None and o["added_kf"]:
-            self._cull(self._state.map)
+            with span("shell.cull"):
+                self._cull(self._state.map)
 
         ran_ba = False
         if self.ba_mode == "on_keyframe" and o["added_kf"]:
-            tb = time.perf_counter()
-            v = self._ba(self._state.map).cpu().numpy()
-            self.ba_stats.append(stats_record(
-                v, wall_ms=(time.perf_counter() - tb) * 1e3))
+            with span("shell.ba"):
+                tb = time.perf_counter()
+                v = self._ba(self._state.map).cpu().numpy()
+                count("shell.syncs")
+                self.ba_stats.append(stats_record(
+                    v, wall_ms=(time.perf_counter() - tb) * 1e3))
+                count_trips(self.ba_stats[-1], self.config.ba)
             ran_ba = True
         elif self.ba_mode == "async":
             # merge a finished solve first, so the probes below see a
             # quiet pipe; a new one is dispatched last
             ran_ba = self._async.ready()
             if ran_ba:
-                self._merge_inflight()
+                with span("shell.ba"):
+                    self._merge_inflight()
 
+        with span("shell.ticks"):
+            o = self._ticks(o, args, depth)
+
+        with span("shell.record"):
+            T = pose_T(o["pose_q"], o["pose_t"])
+            if bool(o["success"]) or self._frame == 0:
+                self.trajectory.append(T)
+            self.frame_poses.append(T)
+            self.frame_anchors.append((int(o["anchor_id"]),
+                                       pose_T(o["anchor_q"], o["anchor_t"])))
+            diag = dict(
+                frame=self._frame,
+                success=bool(o["success"]),
+                added_kf=bool(o["added_kf"]),
+                ran_ba=ran_ba,
+                inlier_ratio=float(o["inlier_ratio"]),
+                num_matches=int(o["num_matches"]),
+                num_inliers=int(o["num_inliers"]),
+                num_features=int(o["num_features"]),
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+            )
+            self.diagnostics.append(diag)
+            self._frame += 1
+        return diag
+
+    def _ticks(self, o, args, depth):
+        """The frame's relocalization, ICP, fusion and loop ticks, and the
+        asynchronous solve's dispatch; returns the frame's output."""
         # a failed frame may insert by the policy and again by
         # relocalization: the runner hears of both
         inserted = int(bool(o["added_kf"]))
@@ -580,27 +657,7 @@ class SLAM(DenseViews):
         if (self.ba_mode == "async" and o["added_kf"]
                 and self._async.inflight is None):
             self._async.dispatch(self._state.map)
-
-        T = pose_T(o["pose_q"], o["pose_t"])
-        if bool(o["success"]) or self._frame == 0:
-            self.trajectory.append(T)
-        self.frame_poses.append(T)
-        self.frame_anchors.append((int(o["anchor_id"]),
-                                   pose_T(o["anchor_q"], o["anchor_t"])))
-        diag = dict(
-            frame=self._frame,
-            success=bool(o["success"]),
-            added_kf=bool(o["added_kf"]),
-            ran_ba=ran_ba,
-            inlier_ratio=float(o["inlier_ratio"]),
-            num_matches=int(o["num_matches"]),
-            num_inliers=int(o["num_inliers"]),
-            num_features=int(o["num_features"]),
-            wall_ms=(time.perf_counter() - t0) * 1e3,
-        )
-        self.diagnostics.append(diag)
-        self._frame += 1
-        return diag
+        return o
 
     def _fuse(self, o, depth_dev):
         """Fuse the keyframe's depth at its pose: into the volume, or into
@@ -675,6 +732,7 @@ class SLAM(DenseViews):
                                 self._load("icp_aq", aq),
                                 self._load("icp_at", at), depth_dev, q0, t0)
         v = v.cpu().numpy()
+        profiling.count("shell.syncs")
         q, t, n, rmse_init, rmse = v[:4], v[4:7], int(v[7]), v[8], v[9]
         accepted = bool(n >= cfg.min_points and rmse <= cfg.accept_rmse_m
                         and rmse <= rmse_init)
@@ -708,6 +766,7 @@ class SLAM(DenseViews):
         exclude = self._load("reloc_exclude", self._tracked_kf, torch.int32)
         res = reloc_record(self._reloc(self._state, *frame_args,
                                        exclude).cpu().numpy())
+        profiling.count("shell.syncs")
         if not res["success"]:
             return o
         self._fail_streak = 0
@@ -723,6 +782,7 @@ class SLAM(DenseViews):
 
     def _merge_inflight(self):
         merged, record = self._async.merge(self._state.map)
+        profiling.count("shell.syncs")
         assign_state(self._state.map, merged)
         self.ba_stats.append(record)
 

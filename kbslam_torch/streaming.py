@@ -74,6 +74,17 @@ memory or are copied on the stream, so fusion adds no host sync. Dense
 ICP runs on the per-frame path only (``ValueError``),
 as in the reference: a rescue must act on the frame that failed, and a
 chunk has already committed its frames.
+
+``feed`` is traced (``utils.profiling``), each span with the index of
+the chunk being staged: ``stream.stage`` (the frame into the staging
+buffers, and the wait for that set's last upload), ``stream.dispatch``
+(the uploads and the replay's launch), ``stream.drain`` (the wait for a
+chunk's rows alone), ``stream.kf_tick`` and ``stream.reloc``; the counter
+``stream.syncs`` counts each blocking host wait (a staging set's upload,
+a chunk's rows, a relocalization's result, an asynchronous solve's
+merge). The chunk graph's stage marks are read after each replay while
+the recorder is on (``device.replay``), and its readings become records
+once that chunk's copy has completed.
 """
 from __future__ import annotations
 
@@ -83,7 +94,7 @@ import numpy as np
 import torch
 
 from kbslam_torch.ba.local_ba import AsyncLocalBA
-from kbslam_torch.device import Programs, graph_capture
+from kbslam_torch.device import Programs, graph_capture, replay
 from kbslam_torch.frontend.image import GRAY_WEIGHTS
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.loop.reloc import (make_reloc_step, reloc_record,
@@ -95,6 +106,7 @@ from kbslam_torch.pipeline import (OUTPUT_WIDTH, TrackOutput, TrackState,
                                    assign_state, clone_state, make_track_step,
                                    output_rows, row_to_fields)
 from kbslam_torch.slam import DenseViews, check_dense_config
+from kbslam_torch.utils import profiling
 
 
 def unpack_mask_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
@@ -313,29 +325,36 @@ class ChunkedStream(DenseViews):
 
     def feed(self, rgb, depth, mask=None) -> List[dict]:
         """Add one frame; returns any newly drained per-frame results."""
-        arrays = self._host_frame(rgb, depth, mask)
-        if self._dense:
-            self._depth_ring[self._fed] = arrays[1]
-        self._fed += 1
-        if self._staging is None:
-            self._make_buffers(arrays)
-        if self._n_host == 0 and self._staged[self._slot] is not None:
-            # this set's last upload must be done before it is refilled
-            self._staged[self._slot].synchronize()
-        for buf, a in zip(self._staging[self._slot], arrays):
-            buf[self._n_host].numpy()[...] = a
-        self._n_host += 1
-        if self._reloc is not None:
-            self._last_fed = arrays
+        span = profiling.span
+        k = self._fed // self.chunk       # the chunk being staged
+        with span("stream.stage", k):
+            arrays = self._host_frame(rgb, depth, mask)
+            if self._dense:
+                self._depth_ring[self._fed] = arrays[1]
+            self._fed += 1
+            if self._staging is None:
+                self._make_buffers(arrays)
+            if self._n_host == 0 and self._staged[self._slot] is not None:
+                # this set's last upload must be done before it is refilled
+                self._staged[self._slot].synchronize()
+                profiling.count("stream.syncs")
+            for buf, a in zip(self._staging[self._slot], arrays):
+                buf[self._n_host].numpy()[...] = a
+            self._n_host += 1
+            if self._reloc is not None:
+                self._last_fed = arrays
         if self._n_host == self.chunk:
-            self._dispatch(self.chunk)
+            with span("stream.dispatch", k):
+                self._dispatch(self.chunk)
         # keep ONE chunk in flight: drain older results while the newest
         # chunk computes
         added = 0
         while len(self._inflight) > 1:
             added += self._collect(self._inflight.pop(0))
-        self._kf_tick(added)
-        self._maybe_reloc()
+        with span("stream.kf_tick", k):
+            self._kf_tick(added)
+        with span("stream.reloc", k):
+            self._maybe_reloc()
         out, self._drained = self._drained, []
         return out
 
@@ -375,7 +394,7 @@ class ChunkedStream(DenseViews):
             if n == self.chunk and self._graphed:
                 if self._graph is None:
                     self._capture()
-                self._graph.replay()
+                replay(self._graph)
                 self.replays += 1
                 rows = self._rows_dev
             else:
@@ -404,7 +423,7 @@ class ChunkedStream(DenseViews):
                       *(b[:1] for b in self._dev_in))
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with graph_capture(graph):
+        with graph_capture(graph, name="chunk"):
             st, outs = self._run(self._state, *self._dev_in)
             self._rows_dev = output_rows(outs)
             assign_state(self._state, st)
@@ -413,8 +432,11 @@ class ChunkedStream(DenseViews):
     def _collect(self, p: _Pending) -> int:
         """Read one chunk's outputs on the host; returns how many of its
         frames inserted a keyframe (the BA trigger)."""
-        if p.event is not None:
-            p.event.synchronize()
+        # under the index of the chunk being staged, as feed's spans
+        with profiling.span("stream.drain", (self._fed - 1) // self.chunk):
+            if p.event is not None:
+                p.event.synchronize()
+                profiling.count("stream.syncs")
         rows = p.rows[:p.n_real].numpy()
         added = 0
         for row in rows:
@@ -538,6 +560,7 @@ class ChunkedStream(DenseViews):
             self._map_changes += 1
         if a is not None and a.inflight is not None and (block or a.ready()):
             merged, record = a.merge(self._state.map)
+            profiling.count("stream.syncs")
             assign_state(self._state, self._state._replace(map=merged))
             self.ba_stats.append(record)
             self._map_changes += 1
@@ -558,13 +581,15 @@ class ChunkedStream(DenseViews):
         the exclusion id go into the program's static tensors, and the
         result comes back in one copy (``loop.reloc.reloc_record``)."""
         load = self._programs.load
-        return reloc_record(self._relocalize(
+        res = reloc_record(self._relocalize(
             self._state, load("reloc_rgb", arrays[0], torch.uint8),
             load("reloc_depth", arrays[1], torch.int32),
             load("reloc_mask", arrays[2], torch.uint8) if self.use_mask
             else None,
             load("reloc_exclude", self._tracked_kf, torch.int32)
         ).cpu().numpy())
+        profiling.count("stream.syncs")
+        return res
 
     def _maybe_reloc(self):
         """Chunk-late relocalization: when the drained frames end in

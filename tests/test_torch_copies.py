@@ -2,10 +2,10 @@
 originals: ``kbslam_torch/config.py``, ``io/synthetic.py``,
 ``eval/trajectory.py``, ``io/tum.py``, ``io/native_loader.py``,
 ``mapping/mesh.py``, ``io/zmq_camera.py``, ``viz/rerun_viewer.py``,
-``utils/logging.py``, ``utils/profiling.py``'s ``StageTimer``,
-``frontend/brief_pattern_learned.npy`` and, byte for byte, the camera
-wire schema ``io/proto/`` (its descriptor registers the proto package
-``kbslam.aswire`` that both packages and a camera manager share).
+``utils/logging.py``, ``frontend/brief_pattern_learned.npy`` and, byte
+for byte, the camera wire schema ``io/proto/`` (its descriptor
+registers the proto package ``kbslam.aswire`` that both packages and a
+camera manager share).
 
 This is the one place both are imported. The copies differ from the
 originals only in their module docstring, which names the file copied,
@@ -64,17 +64,6 @@ def test_pattern_file_bytes_equal():
 def test_wire_schema_bytes_equal(name):
     a = (REPO / "kbslam/io/proto" / name).read_bytes()
     assert (REPO / "kbslam_torch/io/proto" / name).read_bytes() == a
-
-
-def test_stage_timer_source_equal():
-    """``device_trace`` is the port's own (torch.profiler); the timer is a
-    copy."""
-    import inspect
-
-    from kbslam.utils import profiling as j
-    from kbslam_torch.utils import profiling as t
-
-    assert inspect.getsource(t.StageTimer) == inspect.getsource(j.StageTimer)
 
 
 def test_config_defaults_equal():

@@ -787,3 +787,57 @@ def test_nccl_group_of_one_captures_the_sharded_solve(cuda_device):
         assert r["captures"] == 1, name
         for run in r["runs"]:
             assert all(torch.equal(a, b) for a, b in zip(run, r["eager"]))
+
+
+def test_stage_marks_inside_the_shell_graphs(cuda_device):
+    """The stage marks in the shell's CUDA graphs: the track graph holds
+    a first and a last mark and the step's five; with the recorder on,
+    each replay gives the four stages on the device's clock, in order and
+    inside the graph's first-to-last span, and the upload between the
+    shell's two marks; results and host syncs equal a run with the
+    recorder off."""
+    from kbslam_torch.utils import profiling
+
+    seq = synthetic.render_sequence(num_frames=12, height=480, width=640)
+
+    def run(on):
+        slam = SLAM(config.SLAMConfig(), seq.K, device=cuda_device)
+        for i in range(4):
+            slam.process(seq.rgb[i], seq.depth[i])
+        profiling.reset()
+        if on:
+            profiling.enable()
+        for i in range(4, 11):
+            slam.process(seq.rgb[i], seq.depth[i])
+        syncs = profiling.sync_sites(
+            lambda: slam.process(seq.rgb[11], seq.depth[11]))
+        profiling.disable()
+        return slam, syncs, profiling.records()
+
+    off, syncs_off, none = run(False)
+    on, syncs_on, recs = run(True)
+    assert none == [] and syncs_on == syncs_off
+    np.testing.assert_array_equal(np.stack(off.frame_poses),
+                                  np.stack(on.frame_poses))
+    (g,) = on.graphs["track"].graphs.values()
+    assert g.graph.marks.labels == [None, None, "frontend", "match", "pnp",
+                                    "map", None]
+    marks = {(r["frame"], r["name"]): r for r in recs if r["kind"] == "marks"}
+    stages = [r for r in recs
+              if r["kind"] == "stage" and r["graph"] == "track"]
+    assert [r["name"] for r in stages] == ["frontend", "match", "pnp",
+                                           "map"] * 8
+    for r in stages:
+        m = marks[(r["frame"], "track")]
+        assert r["clock"] == "device"
+        assert m["start_ns"] <= r["start_ns"] < r["end_ns"] <= m["end_ns"]
+    uploads = [r for r in recs
+               if r["kind"] == "stage" and r["name"] == "upload"]
+    assert [r["frame"] for r in uploads] == list(range(4, 12))
+    for r in uploads:
+        assert r["end_ns"] <= marks[(r["frame"], "track")]["start_ns"]
+    per = {}
+    for r in recs:
+        if r["kind"] == "count" and r["name"] == "shell.syncs":
+            per[r["frame"]] = per.get(r["frame"], 0) + r["n"]
+    assert per[11] == sum(syncs_on.values())

@@ -9,8 +9,8 @@
   without the rerun SDK): the schema, JET and blueprint cases of
   tests/test_io.py and tests/test_utils.py; ``to_display_coords`` equal
   to the reference's to the bit.
-- ``kbslam_torch/utils``: the logging and StageTimer cases of
-  tests/test_utils.py, and ``device_trace`` writing a trace on the CPU.
+- ``kbslam_torch/utils``: the logging cases of tests/test_utils.py, and
+  ``device_trace`` writing a trace on the CPU.
 - ``python -m kbslam_torch.cli --source zmq:<endpoint>`` fed by a
   ``FramePublisher`` thread, per frame and chunked.
 
@@ -289,22 +289,6 @@ def test_logging_gated(capsys, monkeypatch):
     monkeypatch.setenv("KBSLAM_DEBUG", "1")
     info("now visible")
     assert "now visible" in capsys.readouterr().out
-
-
-def test_stage_timer():
-    """tests/test_utils.py's StageTimer case on the port's copy."""
-    from kbslam_torch.utils.profiling import StageTimer
-
-    t = StageTimer()
-    for _ in range(3):
-        with t.span("track"):
-            np.ones(1000).sum()
-    with t.span("ba"):
-        pass
-    s = t.summary()
-    assert s["track"]["count"] == 3
-    assert s["ba"]["count"] == 1
-    assert "track" in t.report()
 
 
 def test_device_trace_writes_a_cpu_trace(tmp_path):

@@ -197,7 +197,7 @@ def test_port_imports_no_jax():
     from a file under kbslam/ under any name."""
     code = ("import sys, os, kbslam_torch, kbslam_torch.pipeline, "
             "kbslam_torch.cli, kbslam_torch.slam, kbslam_torch.convert, "
-            "kbslam_torch.profile_step, kbslam_torch.ops.describe, "
+            "kbslam_torch.ops.describe, "
             "kbslam_torch.ba.local_ba, kbslam_torch.ba.lm, "
             "kbslam_torch.ba.merge, "
             "kbslam_torch.streaming, kbslam_torch.io.checkpoint, "
