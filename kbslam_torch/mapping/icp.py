@@ -26,6 +26,10 @@ can be captured as one CUDA graph.
 The shells accept or reject a result on the host from its stats; an
 empty or never-observed model gives ``num_valid == 0`` and the pose
 back unchanged.
+
+``align_depth_to_atlas`` marks its stages (``utils.profiling.mark``):
+``icp_pack`` (the [K, V] repack of its K slots with the sentinel) and
+``icp_gn`` (the Gauss-Newton trips and the final fetch).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from kbslam_torch.config import DenseIcpConfig, DenseMapConfig
 from kbslam_torch.geom.camera import Intrinsics, undistort_points
 from kbslam_torch.geom.se3 import SE3, quat_rotate, quat_to_matrix
 from kbslam_torch.mapping.dense import TSDFState
+from kbslam_torch.utils import profiling
 
 
 class IcpResult(NamedTuple):
@@ -212,10 +217,12 @@ def align_depth_to_atlas(atlas, slots, anchor_q, anchor_t, depth_m, q0, t0,
     normal equations are not summed. Local gradients reach the world
     through the anchor rotation (X_l = R^T (X_w - t), so grad_w =
     R grad_l)."""
+    profiling.mark(None, depth_m)
     slots = slots.to(torch.int64)
     packed = torch.where(atlas.weight.index_select(0, slots) > 0,
                          atlas.tsdf.index_select(0, slots),
                          _SENTINEL).reshape(slots.shape[0], -1)  # [K, V]
+    profiling.mark("icp_pack", depth_m)
     R = quat_to_matrix(anchor_q)                                 # [K, 3, 3]
     p_cam, p_ok = _frame_points(depth_m, intr, cfg, icp.stride)
     K = slots.shape[0]
@@ -231,7 +238,9 @@ def align_depth_to_atlas(atlas, slots, anchor_q, anchor_t, depth_m, q0, t0,
         gw = torch.where(sel[..., None], gws, 0.0).sum(dim=0)
         return phi, gw, valids.any(dim=0)
 
-    return _gn_align(sdf_fn, p_cam, p_ok, q0, t0, cfg, icp)
+    res = _gn_align(sdf_fn, p_cam, p_ok, q0, t0, cfg, icp)
+    profiling.mark("icp_gn", depth_m)
+    return res
 
 
 @functools.lru_cache(maxsize=8)

@@ -29,8 +29,13 @@ tensor, so neither reads the device, a fusion can run between the
 replays of the chunk graph, and the per-frame shell captures one graph
 for each that opens or fuses any slot. ``live_slots``,
 ``anchor_poses_now``, ``recent_slots_with_poses``, ``atlas_mesh`` and
-``extract_atlas_surface`` are host-side, off the hot path, and read the
-device freely.
+``extract_atlas_surface`` are host-side and read the device freely; the
+per-frame shell's ICP refine calls ``recent_slots_with_poses`` on every
+frame, and names the counter (``syncs``) that each of its six blocking
+reads counts in (``utils.profiling``).
+
+``integrate_active`` marks its work as the stage ``fuse``
+(``utils.profiling.mark``).
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from kbslam_torch.device import pick_device
 from kbslam_torch.geom.camera import Intrinsics
 from kbslam_torch.geom.se3 import SE3
 from kbslam_torch.mapping.dense import TSDFState, integrate, surface_points
+from kbslam_torch.utils import profiling
 
 
 class SubmapAtlas(NamedTuple):
@@ -127,6 +133,7 @@ def integrate_active(atlas: SubmapAtlas, depth_m, q, t, intr: Intrinsics,
     with the newest content. Defaults to the stored anchor pose.
     ``slot``: the active slot, from the host count by default, or a
     device tensor as in ``start_submap``."""
+    profiling.mark(None, depth_m)
     idx = slot_index(atlas, atlas.active_slot() if slot is None else slot)
     if anchor_q is None:
         anchor_q = atlas.anchor_q.index_select(0, idx)[0]
@@ -141,6 +148,7 @@ def integrate_active(atlas: SubmapAtlas, depth_m, q, t, intr: Intrinsics,
     # a copy: the caller's anchor pose may be a view of that very row
     atlas.anchor_q.index_copy_(0, idx, anchor.q.reshape(1, 4).clone())
     atlas.anchor_t.index_copy_(0, idx, anchor.t.reshape(1, 3).clone())
+    profiling.mark("fuse", depth_m)
     return atlas
 
 
@@ -166,10 +174,18 @@ def live_slots(atlas: SubmapAtlas) -> np.ndarray:
     return np.array([(c - n + k) % s for k in range(n)], np.int32)
 
 
-def _ring(map_state):
+def _host(t: torch.Tensor, syncs: Optional[str] = None) -> np.ndarray:
+    """``t`` on the host: a blocking read, counted in the counter
+    ``syncs`` when one is named."""
+    if syncs is not None:
+        profiling.count(syncs)
+    return t.cpu().numpy()
+
+
+def _ring(map_state, syncs: Optional[str] = None):
     """The map ring's ids, rotations and translations on the host."""
-    return (map_state.kf_id.cpu().numpy(), map_state.kf_q.cpu().numpy(),
-            map_state.kf_t.cpu().numpy())
+    return (_host(map_state.kf_id, syncs), _host(map_state.kf_q, syncs),
+            _host(map_state.kf_t, syncs))
 
 
 def anchor_poses_now(atlas: SubmapAtlas, map_state) -> dict:
@@ -191,7 +207,8 @@ def anchor_poses_now(atlas: SubmapAtlas, map_state) -> dict:
 
 
 def recent_slots_with_poses(atlas: SubmapAtlas, map_state, k: int,
-                            exclude_active: bool = False):
+                            exclude_active: bool = False,
+                            syncs: Optional[str] = None):
     """The newest (up to) ``k`` live slots, newest first, each with its
     anchor keyframe's current ring pose (the stored anchor pose when the
     ring slot was since reallocated). A short window is padded by
@@ -202,17 +219,18 @@ def recent_slots_with_poses(atlas: SubmapAtlas, map_state, k: int,
 
     ``exclude_active`` drops the newest, actively fused submap: the
     independent evidence of ICP "refine", geometry fused under poses not
-    correlated with the most recent drift."""
+    correlated with the most recent drift. ``syncs``: the counter each of
+    the six blocking reads counts in."""
     slots = live_slots(atlas)[::-1]
     if exclude_active and len(slots):
         slots = slots[1:]
     if not len(slots):
         return None
     slots = slots[:k]
-    ring_ids, qs, ts = _ring(map_state)
+    ring_ids, qs, ts = _ring(map_state, syncs)
     cap = ring_ids.shape[0]
-    ids = atlas.anchor_kf_id.cpu().numpy()
-    aq, at = atlas.anchor_q.cpu().numpy(), atlas.anchor_t.cpu().numpy()
+    ids = _host(atlas.anchor_kf_id, syncs)
+    aq, at = _host(atlas.anchor_q, syncs), _host(atlas.anchor_t, syncs)
     out_q, out_t = [], []
     for s in slots:
         kid = int(ids[s])

@@ -60,18 +60,24 @@ host count of insertions, and its current ring pose (or the stored one,
 when its ring slot was reallocated) is chosen on the device, so the
 default path keeps its one host sync per frame. The dense ICP tick reads
 its result once per solve, and against the atlas first reads the map
-ring to choose its window of submaps (``submap.recent_slots_with_poses``,
-host-side as in the reference).
+ring and the anchors to choose its window of submaps
+(``submap.recent_slots_with_poses``, host-side as in the reference: six
+reads).
 
 ``process`` is traced (``utils.profiling``): the span ``shell.process``
 (with the frame's index) and inside it ``shell.upload``, ``shell.track``
 (the replay's launch and the output wait), ``shell.cull``, ``shell.ba``,
 ``shell.ticks`` (relocalization, ICP, fusion, the loop) and
-``shell.record``; the counter ``shell.syncs``, one per blocking host read
-(the track output, a solve's stats, a relocalization's or an ICP solve's
-result, an asynchronous solve's merge), and a solve's LM trips. With the
-recorder on, the frame's upload is marked on the device (``upload``,
-between two marks of a ``profiling.Marks`` named ``shell``).
+``shell.record``; inside ``shell.ticks``, ``shell.icp`` (the atlas's slot
+choice, the ICP replay and its result read) and ``shell.fuse`` (a
+keyframe's fusion). The counter ``shell.syncs``, one per blocking host
+read (the track output, a solve's stats, a relocalization's or an ICP
+solve's result, each of the six reads of the atlas's slot choice, an
+asynchronous solve's merge), and a solve's LM trips; ``dense.icp_solves``
+and ``dense.icp_accepted``, ``dense.fusions`` and
+``dense.submaps_opened``. With the recorder on, the frame's upload is
+marked on the device (``upload``, between two marks of a
+``profiling.Marks`` named ``shell``).
 """
 from __future__ import annotations
 
@@ -637,12 +643,14 @@ class SLAM(DenseViews):
         # keyframe and skips refine) and before fusion, so a rescued pose
         # is the one the model would see
         if self._icp is not None or self._icp_atlas is not None:
-            o = self._icp_tick(o, args[1])
+            with profiling.span("shell.icp"):
+                o = self._icp_tick(o, args[1])
 
         # dense fusion after the reloc tick (a relocalized frame is a
         # keyframe at its recovered pose) and before the loop tick
         if self.config.dense.enabled and o["added_kf"]:
-            self._fuse(o, args[1])
+            with profiling.span("shell.fuse"):
+                self._fuse(o, args[1])
             self._last_kf_view = (np.asarray(o["pose_q"]),
                                   np.asarray(o["pose_t"]), depth,
                                   self._num_kf - 1)
@@ -670,11 +678,13 @@ class SLAM(DenseViews):
         window's newest keyframe fixed, so it is no gauge change)."""
         q = self._load("fuse_q", o["pose_q"])
         t = self._load("fuse_t", o["pose_t"])
+        profiling.count("dense.fusions")
         if self.atlas is None:
             self._integrate(self.tsdf, depth_dev, q, t)
             return
         opens = self._kf_insertions % self.config.dense.submap_every == 0
         if opens:
+            profiling.count("dense.submaps_opened")
             self.atlas = self.atlas._replace(count=self.atlas.count + 1)
         slot = self._load("submap_slot", self.atlas.active_slot(), torch.int64)
         if opens:
@@ -704,7 +714,7 @@ class SLAM(DenseViews):
         submaps re-posed by their anchors' current ring poses; refine
         leaves out the active submap, so that the polish rests on
         geometry not fused under the most recent drift. One host read per
-        solve."""
+        solve, and against the atlas six more for the window."""
         cfg = self.config.dense_icp
         ok = bool(o["success"])
         if ok:
@@ -723,7 +733,7 @@ class SLAM(DenseViews):
         else:
             win = submap.recent_slots_with_poses(
                 self.atlas, self._state.map, cfg.atlas_slots,
-                exclude_active=ok)
+                exclude_active=ok, syncs="shell.syncs")
             if win is None:
                 return o    # no (independent) submap yet
             slots, aq, at = win
@@ -733,11 +743,14 @@ class SLAM(DenseViews):
                                 self._load("icp_at", at), depth_dev, q0, t0)
         v = v.cpu().numpy()
         profiling.count("shell.syncs")
+        profiling.count("dense.icp_solves")
         q, t, n, rmse_init, rmse = v[:4], v[4:7], int(v[7]), v[8], v[9]
         accepted = bool(n >= cfg.min_points and rmse <= cfg.accept_rmse_m
                         and rmse <= rmse_init)
         if ok:      # refine: a strict improvement too
             accepted = accepted and bool(rmse < rmse_init)
+        if accepted:
+            profiling.count("dense.icp_accepted")
         self.icp_events.append(dict(
             frame=self._frame, mode="refine" if ok else "rescue",
             accepted=accepted, num_valid=n, rmse_init=float(rmse_init),
