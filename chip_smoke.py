@@ -171,8 +171,16 @@ non-zero):
                 on one frame of the plane from a perturbed pose (stride 4,
                 8 trips), card against CPU (decisions equal, pose within
                 0.1 mm and 0.01 deg, rmse within 1e-6 m, ``num_valid``
-                within 0.5%), 0 host syncs in a solve, each timed by a CUDA
-                graph with launches, peak memory and bound; ``SLAM`` with
+                within 0.5%), 0 host syncs in a solve, 8 + 1 launches of
+                the fetch kernel of csrc/icp.cu in a solve, bit-equal to
+                the plain twin on the card, each timed by a CUDA graph
+                beside the twin, with launches, peak memory, the bound
+                of slambench/harness/dense_bytes.icp_bytes and the fetch
+                kernels' own time in a profiled replay; the atlas aligner
+                again on the dense benchmark cell's ring (16 slots of
+                512^3 voxels of 3/512 m, the window in the last three
+                slots), bit-equal to the twin, 8 + 1 fetch launches a
+                solve, timed beside the twin; ``SLAM`` with
                 BA on keyframe and a submap every 2 insertions over the 60
                 frames ((insertions + 1) // 2 submaps, surface on the
                 plane, map consistency, a mesh); ``ChunkedStream`` (chunk
@@ -186,7 +194,9 @@ non-zero):
                 mask blackout of tests/test_dense_icp.py:118-163 at its
                 320x240 and at 640x480 with ``SLAMConfig()``'s ORB and map,
                 with the volume and with the atlas, held to that test's
-                gates; one ``dense_icp="refine"`` pass over the 60 frames;
+                gates; one ``dense_icp="refine"`` pass over the 60 frames,
+                its fetch kernels counted (capture warm-ups and graph
+                replays, iters + 1 each);
  18. global_ba — BASELINE.json config 5 (200 cameras, 50,000 landmarks,
                 102,400 observations, built as benchmarks/
                 global_ba_stress.py:40-99 builds it): one guarded solve
@@ -302,11 +312,14 @@ non-zero):
                 ``SLAMConfig()`` (refined ATE under 8 mm, keyframe ATE
                 within the CPU oracle's + 1 mm), every gate enforced, the
                 describe kernel once per frame.
-The dense stages, the atlas, the aligners, global BA, the dense
-reference solver and the multistream shell are plain torch, not kernels of the kernels line. Then
-one JSON line about the kernels, the nvidia-smi line, and the result
-line. The describe kernel has two entries there: its launches over one
-pyramid, which sum phases 5, 7 and 10, the relocalization attempts of
+The dense stages, the atlas, global BA, the dense reference solver and
+the multistream shell are plain torch, not kernels of the kernels line;
+the aligners' fetches are the kernel of csrc/icp.cu, which replaces no
+TPU kernel and enters the kernels line with phase 17's figures per
+solve. Then one JSON line about the kernels, the nvidia-smi
+line, and the result line. The describe kernel has two entries there:
+its launches over one pyramid, which sum phases 5, 7 and 10, the
+relocalization attempts of
 phase 14, phase 16's dense SLAM run, phase 17's atlas SLAM run, phase
 19's and phase 22's per-stream runs, phase 21's runs (its chunked CLI
 runs add their replays x 8) and phase 23's runs; and its launches over
@@ -1998,8 +2011,9 @@ def _near_round_edge(dcfg, intr, q, t):
     return near
 
 
-def _launches(fn):
-    """CUDA kernels that one call of ``fn`` runs (torch.profiler)."""
+def _launches(fn, name=""):
+    """CUDA kernels that one call of ``fn`` runs (torch.profiler), those
+    whose name holds ``name`` when one is given."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2007,7 +2021,34 @@ def _launches(fn):
         fn()
         torch.cuda.synchronize()
     return sum(e.device_type == torch.autograd.DeviceType.CUDA
-               for e in prof.events())
+               and name in e.name for e in prof.events())
+
+
+def _graph_kernels(fn, name):
+    """One call of ``fn`` captured in a CUDA graph, and one replay of it
+    under torch.profiler: (device ms of the kernels whose name holds
+    ``name``, their count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kbslam_torch.device import graph_capture
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up: caches, allocator
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with graph_capture(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name in e.name]
+    return sum(e.device_time for e in ks) / 1e3, len(ks)
 
 
 def _peak_gb(fn):
@@ -2331,8 +2372,9 @@ def submap_phase(dev, seq, smi, pace) -> int:
     """(17) The submap atlas and dense ICP at SLAMConfig()'s
     DenseMapConfig (96x96x32 voxels) with 16 submaps and 640x480:
     start_submap and integrate_active on the card against the CPU; the
-    two aligners on the card against the CPU, timed beside their bounds;
-    SLAM with the atlas and BA on keyframe; ChunkedStream (chunk 8, BA
+    two aligners on the card against the CPU, timed beside their bounds,
+    and the atlas aligner on the dense cell's 512^3 ring against its plain
+    twin; SLAM with the atlas and BA on keyframe; ChunkedStream (chunk 8, BA
     off) with the atlas against per-frame SLAM; the atlas through a
     checkpoint; the dense ICP rescue through a mask blackout at 320x240
     and at 640x480, and one refine pass. Returns the describe launches of
@@ -2343,10 +2385,11 @@ def submap_phase(dev, seq, smi, pace) -> int:
     from kbslam_torch import config, convert
     from kbslam_torch.config import DenseIcpConfig
     from kbslam_torch.geom.camera import Intrinsics
-    from kbslam_torch.geom.se3 import SE3
+    from kbslam_torch.geom.se3 import SE3, quat_rotate
     from kbslam_torch.io.checkpoint import (load_checkpoint_atlas,
                                             save_checkpoint)
     from kbslam_torch.mapping import dense, icp, submap
+    from kbslam_torch.ops import icp as icp_ops
     from kbslam_torch.pipeline import init_state
     from kbslam_torch.slam import SLAM
     from kbslam_torch.streaming import ChunkedStream
@@ -2450,13 +2493,18 @@ def submap_phase(dev, seq, smi, pace) -> int:
     P = (H // 4) * (W // 4)
     d_c, d_d = depth(25, cpu), depth(25, dev)
     atlas_c = on(cpu)
+    p_cam, p_ok = icp._frame_points(d_d.to(torch.float32) * scale, intr,
+                                    dcfg, icfg.stride)
+    slot0 = torch.zeros(1, dtype=torch.int32, device=dev)
     rows = []
-    for name, fn_d, fn_c, K in (
+    for name, fn_d, fn_c, twin_args, K in (
             ("align_depth_to_tsdf", lambda: mono(vol_d, d_d, q0d, t0d),
-             lambda: mono(vol, d_c, q0c, t0c), 1),
+             lambda: mono(vol, d_c, q0c, t0c),
+             (vol_d.tsdf[None], vol_d.weight[None], slot0, None, None), 1),
             ("align_depth_to_atlas",
              lambda: many(atlas_d, *win_d, d_d, q0d, t0d),
-             lambda: many(atlas_c, *win_c, d_c, q0c, t0c), 3)):
+             lambda: many(atlas_c, *win_c, d_c, q0c, t0c),
+             (atlas_d.tsdf, atlas_d.weight, *win_d), 3)):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2465,31 +2513,124 @@ def submap_phase(dev, seq, smi, pace) -> int:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         gap = _icp_gap(r_d, fn_c(), icfg)
+
+        def twin(a=twin_args):      # the kernels' plain twin, on the card
+            return icp_ops.align_reference(*a, p_cam, p_ok, q0d, t0d, dcfg,
+                                           icfg)
+
+        if not all(torch.equal(a, b) for a, b in zip(r_d, twin())):
+            raise AssertionError(f"{name}: the kernel's solve != the plain "
+                                 f"twin's on the card")
         ms = cuda_ms(fn_d)
+        twin_ms = cuda_ms(twin)
         launches = _launches(fn_d)
+        kernels = _launches(fn_d, "icp_fetch_kernel")
+        k_ms, k_replay = _graph_kernels(fn_d, "icp_fetch_kernel")
+        if not kernels == k_replay == icfg.iters + 1:
+            raise AssertionError(f"{name}: {kernels} fetch kernels in an "
+                                 f"eager solve, {k_replay} in a replay, not "
+                                 f"{icfg.iters} + 1")
         peak = _peak_gb(fn_d)
-        # bytes: each slot's tsdf and weight read once, the strided depth
-        # pixels; operations: per point, slot and fetch ~150 flop
-        # (transform, trilinear value and gradient, selection), and per
-        # point and trip ~100 (Jacobian, normal equations)
-        nbytes = K * V * 8 + P * 4
+        # bytes (slambench/harness/dense_bytes.icp_bytes): the depth image
+        # once, and per fetch the 8 corners' tsdf and weight of each point
+        # in each slot; operations: per point, slot and fetch ~150 flop
+        # (transform, trilinear value and gradient), and per point and
+        # trip ~100 (Jacobian, normal equations)
+        nbytes = H * W * 4 + (icfg.iters + 1) * 8 * 2 * 4 * P * K
         flops = P * ((icfg.iters + 1) * 150.0 * K + icfg.iters * 100.0)
         b, by = bound(nbytes, flops)
-        rows.append((name, K, round(ms, 4), launches, round(peak, 4),
-                     round(b * 1e3, 2), by, f"{b / ms:.2%}",
-                     int(r_d.num_valid), round(float(r_d.rmse_init), 5),
-                     round(float(r_d.rmse), 5), gap[4],
-                     f"{gap[0]:.1e} m", f"{gap[1]:.1e} deg"))
+        rows.append((name, K, round(ms, 4), round(twin_ms, 4), launches,
+                     kernels, round(peak, 4), round(b * 1e3, 2), by,
+                     f"{b / ms:.2%}", int(r_d.num_valid),
+                     round(float(r_d.rmse_init), 5), round(float(r_d.rmse), 5),
+                     gap[4], f"{gap[0]:.1e} m", f"{gap[1]:.1e} deg",
+                     round(k_ms, 4)))
     pace["icp_rows"] = rows
     print(f"[submaps] aligners on one 640x480 frame ({P} points, stride 4, "
           f"{icfg.iters} trips, perturbed by tests/test_dense_icp.py's "
           f"delta), 0 host syncs inside a solve (sync debug mode 'error'), "
           f"card against the CPU within {ICP_POSE_M} m, {ICP_POSE_DEG} deg, "
           f"rmse {ICP_RMSE_M} m, num_valid {ICP_VALID_SHARE:.1%}, decisions "
-          f"equal; (name, slots, device ms by CUDA graph of 20 calls, "
-          f"launches per call, peak GB, bound us, bound by, share of bound, "
-          f"num_valid, rmse_init, rmse, accepted, pose gap card-CPU): "
+          f"equal, bit-equal to the plain twin on the card; (name, slots, "
+          f"device ms by CUDA graph of 20 calls, the plain twin's ms on the "
+          f"card, launches per call, of them the fetch kernel of "
+          f"csrc/icp.cu, peak GB, bound us, bound by, share of bound, "
+          f"num_valid, rmse_init, rmse, accepted, pose gap card-CPU, the "
+          f"fetch kernels' own device ms in a profiled replay of a solve): "
           f"{rows}; {smi}", flush=True)
+
+    # 2b. the atlas aligner at the dense benchmark cell's grid and ring
+    # (slambench/configs/tum-fr1-desk-dense512.json: 16 slots of 512^3
+    # voxels of 3/512 m, 17.2 GB): submaps anchored at frames 15, 30 and
+    # 45 in the ring's last three slots (slot 15 starts 15 * 2^27 voxels
+    # in), each fusing its anchor frame and the fifth after it on the
+    # card; frame 25 from the perturbed pose against the window
+    # [15, 14, 13] and the stored anchors, bit-equal to the plain twin on
+    # the card, 8 + 1 fetch launches a solve, timed as above
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "slambench", "configs", "tum-fr1-desk-dense512.json")
+    with open(path) as f:
+        cell = json.load(f)["slam"]["dense"]
+    big = dataclasses.replace(
+        dcfg, dims=tuple(cell["dims"]), voxel_size=cell["voxel_size"],
+        origin=tuple(cell["origin"]), truncation=cell["truncation"])
+    S_big = cell["max_submaps"]
+    bstart, bfuse = submap.make_submap_ops(big, intr, S_big, scale)
+    ring = submap.empty_atlas(big, S_big, dev)
+    bslots = list(range(S_big - 1, S_big - 4, -1))        # newest first
+    for a, sl in zip((15, 30, 45), reversed(bslots)):
+        ring = bstart(ring, *qt(poses[a], dev), a // 2, slot=sl)
+        for i in (a, a + 5):
+            ring = bfuse(ring, depth(i, dev), *qt(poses[i], dev),
+                         *qt(poses[a], dev), slot=sl)
+    bwin = torch.tensor(bslots, dtype=torch.int32, device=dev)
+    bwin_q, bwin_t = ring.anchor_q[bwin].contiguous(), ring.anchor_t[
+        bwin].contiguous()
+    bmany = icp.make_icp_atlas(big, icfg, intr, scale)
+    bp_cam, bp_ok = icp._frame_points(d_d.to(torch.float32) * scale, intr,
+                                      big, icfg.stride)
+
+    def big_solve():
+        return bmany(ring, bwin, bwin_q, bwin_t, d_d, q0d, t0d)
+
+    def big_twin():
+        return icp_ops.align_reference(ring.tsdf, ring.weight, bwin, bwin_q,
+                                       bwin_t, bp_cam, bp_ok, q0d, t0d, big,
+                                       icfg)
+
+    got_b, want_b = big_solve(), big_twin()
+    # the window's first valid slot of each point at the start pose
+    valids = icp_ops.fetch_slots(ring.tsdf, ring.weight, bwin, bwin_q,
+                                 bwin_t, big,
+                                 quat_rotate(q0d, bp_cam) + t0d)[2] & bp_ok
+    per_slot = [int(x) for x in torch.bincount(
+        torch.argmax(valids.to(torch.uint8), dim=0)[valids.any(dim=0)],
+        minlength=3)]
+    if not (all(torch.equal(a, b) for a, b in zip(got_b, want_b))
+            and int(got_b.num_valid) > 1000):
+        raise AssertionError(f"512^3 ring: the kernel's solve {got_b} != "
+                             f"the plain twin's {want_b} on the card, or "
+                             f"too few valid points")
+    b_kernels = _launches(big_solve, "icp_fetch_kernel")
+    bk_ms, bk_replay = _graph_kernels(big_solve, "icp_fetch_kernel")
+    if not b_kernels == bk_replay == icfg.iters + 1:
+        raise AssertionError(f"512^3 ring: {b_kernels} fetch kernels in an "
+                             f"eager solve, {bk_replay} in a replay, not "
+                             f"{icfg.iters} + 1")
+    b_ms, b_twin_ms = cuda_ms(big_solve), cuda_ms(big_twin)
+    pace["icp_big"] = (b_ms, b_twin_ms, bk_ms, b_kernels)
+    print(f"[submaps] the atlas aligner on the dense cell's ring ({S_big} x "
+          f"{big.dims} voxels of {big.voxel_size} m, window {bslots}): "
+          f"bit-equal to the plain twin on the card, num_valid "
+          f"{int(got_b.num_valid)}, rmse_init {float(got_b.rmse_init):.6f}"
+          f" m, rmse {float(got_b.rmse):.6f} m, points whose first valid "
+          f"slot at the start pose is the window's 1st, 2nd, 3rd "
+          f"{per_slot}; {b_kernels} fetch kernels a solve; device ms by CUDA"
+          f" graph of 20 calls {b_ms:.4f}, of it the fetch kernels "
+          f"{bk_ms:.4f} (profiled replay), the plain twin's {b_twin_ms:.4f};"
+          f" {smi}", flush=True)
+    del ring, bwin, bwin_q, bwin_t, got_b, want_b, valids
+    torch.cuda.empty_cache()
 
     # 3. SLAM with the atlas and BA on keyframe (the main path of this
     # phase: the describe kernel once per frame)
@@ -2611,7 +2752,24 @@ def submap_phase(dev, seq, smi, pace) -> int:
     rcfg = cfg.replace(dense=dataclasses.replace(cfg.dense, submap_every=0),
                        dense_icp=dataclasses.replace(cfg.dense_icp,
                                                      mode="refine"))
+    # the main path's fetch kernels: each capture's warm-up solves
+    # eagerly (counted by ops.icp.launches), each replay runs iters + 1
+    from kbslam_torch import device as device_mod
+
+    reset_launch_counts()
+    icp_ops.reset_launches()
     ref_slam = track(SLAM(rcfg, seq.K, device=dev), seq)
+    trips = rcfg.dense_icp.iters + 1
+    solves = device_mod.replays["icp"]
+    warm = device_mod.captures["icp"]
+    if not (solves == len(ref_slam.icp_events)
+            and icp_ops.launches == warm * trips):
+        raise AssertionError(
+            f"refine: {solves} icp replays for {len(ref_slam.icp_events)} "
+            f"solves, {icp_ops.launches} eager fetch launches for {warm} "
+            f"captures")
+    main_fetches = (warm + solves) * trips
+    pace["icp_main"] = (main_fetches, solves, warm)
     refines = [e for e in ref_slam.icp_events if e["mode"] == "refine"]
     plain = [d["wall_ms"] for d in ref_slam.diagnostics[1:]
              if not d["ran_ba"]]
@@ -2627,7 +2785,9 @@ def submap_phase(dev, seq, smi, pace) -> int:
           f"BA on keyframe: {len(refines)} refines, "
           f"{sum(e['accepted'] for e in refines)} accepted, median "
           f"{np.median(plain):.2f} ms of frames without a solve against "
-          f"phase 7's {pace['slam_ba_ms']:.2f}; {smi}", flush=True)
+          f"phase 7's {pace['slam_ba_ms']:.2f}; fetch kernels run "
+          f"{main_fetches}: ({warm} capture warm-ups + {solves} replays of "
+          f"the icp graph) x {trips}; {smi}", flush=True)
     return sub_launches
 
 
@@ -4986,7 +5146,19 @@ def main(argv=None) -> int:
          "replaces": "kbslam/ops/pallas_patches.py:153",
          "launches": launches["extract_patches"], "max_abs_err": 0.0,
          "ms": p_ms, "plain_ms": p_plain, "bound_ms": p_bound,
-         "bound_by": p_by, "library_ms": p_lib}]}))
+         "bound_by": p_by, "library_ms": p_lib}] + [
+        {"name": f"icp_fetch_kernel ({r[0]}, K = {r[1]})",
+         "route": "cuda", "source": "kbslam_torch/csrc/icp.cu",
+         "replaces": None, "launches_per_solve": r[5],
+         "main_path_launches": pace["icp_main"][0], "kernel_ms": r[16],
+         "ms": r[2], "plain_ms": r[3], "bound_ms": r[7] / 1e3,
+         "bound_by": r[8], "library_ms": None} for r in pace["icp_rows"]] + [
+        {"name": "icp_fetch_kernel (align_depth_to_atlas, K = 3, the dense "
+                 "cell's 512^3 ring)",
+         "route": "cuda", "source": "kbslam_torch/csrc/icp.cu",
+         "replaces": None, "launches_per_solve": pace["icp_big"][3],
+         "kernel_ms": pace["icp_big"][2], "ms": pace["icp_big"][0],
+         "plain_ms": pace["icp_big"][1], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

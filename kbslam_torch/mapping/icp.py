@@ -13,23 +13,30 @@ nearest surface inside the truncation band. Gauss-Newton minimizes
 sum_i w_i r_i^2 over a left-multiplied se(3) step (J_i = [g_i, X_i x
 g_i], g the metric TSDF gradient), Huber-weighted, over points whose
 whole trilinear neighbourhood is observed and whose TSDF lies strictly
-inside the clamp band. Per trip: one ``[P, 8]`` corner gather (per slot
-with the atlas), the gradient from the same 8 corners, the 6x6 normal
-equations in float32 (TF32 stays off, ``device.pick_device``) and one
-damped solve by ``torch.linalg.solve_ex``, which, unlike ``solve``, does
-not check for errors and so makes no host sync; the guard
-``isfinite(xi).all() & (n > 0)`` holds the pose on a singular system.
-The reference's fixed-trip ``fori_loop`` is a Python loop of ``iters``
-trips with no data-dependent exit, so a solve makes no host read and
-can be captured as one CUDA graph.
+inside the clamp band: per trip one fetch of the 8 corners of every
+point (per slot with the atlas, the newest valid slot winning), the 6x6
+normal equations in float32 (TF32 stays off, ``device.pick_device``) and
+one damped solve; the guard ``isfinite(xi).all() & (n > 0)`` holds the
+pose on a singular system. The reference's fixed-trip ``fori_loop`` is a
+loop of ``iters`` trips with no data-dependent exit, so a solve makes no
+host read and can be captured as one CUDA graph.
+
+The solve itself is ``ops/icp.py``: each fetch on the card one launch
+of a hand-written kernel (``csrc/icp.cu``) that reads the slots in place
+and gives the plain twin's bits, the CPU the twin. This module
+back-projects the depth image (``_frame_points``, once per solve) and
+hands over the slots: the atlas's ring with the window's slot ids and
+anchor poses, or the monolithic volume as a ring of one read in world
+coordinates.
 
 The shells accept or reject a result on the host from its stats; an
 empty or never-observed model gives ``num_valid == 0`` and the pose
 back unchanged.
 
 ``align_depth_to_atlas`` marks its stages (``utils.profiling.mark``):
-``icp_pack`` (the [K, V] repack of its K slots with the sentinel) and
-``icp_gn`` (the Gauss-Newton trips and the final fetch).
+``icp_pack`` (empty since the kernel reads the slots in place: it held
+the [K, V] repack of the K slots) and ``icp_gn`` (the back-projection,
+the Gauss-Newton trips and the final fetch).
 """
 from __future__ import annotations
 
@@ -40,8 +47,8 @@ import torch
 
 from kbslam_torch.config import DenseIcpConfig, DenseMapConfig
 from kbslam_torch.geom.camera import Intrinsics, undistort_points
-from kbslam_torch.geom.se3 import SE3, quat_rotate, quat_to_matrix
 from kbslam_torch.mapping.dense import TSDFState
+from kbslam_torch.ops import icp as icp_ops
 from kbslam_torch.utils import profiling
 
 
@@ -53,14 +60,14 @@ class IcpResult(NamedTuple):
     rmse: torch.Tensor       # f32 metres, and after it
 
 
-_SENTINEL = 4.0  # packed "unobserved" value; a real TSDF lies in [-1, 1]
-
-
 def pack_volume(state: TSDFState) -> torch.Tensor:
-    """The flat volume with unobserved voxels set to the sentinel, so one
-    gather per corner tells value and observedness: a corner >= 2 makes
-    the whole trilinear neighbourhood invalid."""
-    return torch.where(state.weight > 0, state.tsdf, _SENTINEL).reshape(-1)
+    """The JAX package's packed volume: flat, unobserved voxels set to the
+    sentinel, so one gather per corner tells value and observedness (a
+    corner >= 2 makes the whole trilinear neighbourhood invalid). Off the
+    solve's path, which reads ``weight > 0`` in place; the tests hold
+    that fetch to this one."""
+    return torch.where(state.weight > 0, state.tsdf,
+                       icp_ops.SENTINEL).reshape(-1)
 
 
 def _trilinear_sdf(packed, cfg: DenseMapConfig, X: torch.Tensor):
@@ -72,49 +79,14 @@ def _trilinear_sdf(packed, cfg: DenseMapConfig, X: torch.Tensor):
     derivative of the interpolant from the same 8 corner values; valid
     asks for the whole 2x2x2 neighbourhood inside the grid and
     observed."""
-    nx, ny, nz = cfg.dims
-    h = cfg.voxel_size
-    valid = torch.ones(X.shape[:-1], dtype=torch.bool, device=X.device)
-    idx, f = [], []
-    for a, n in enumerate(cfg.dims):
-        g = (X[..., a] - cfg.origin[a]) / h - 0.5
-        i0 = torch.floor(g)
-        f.append(g - i0)                                      # in [0, 1)
-        valid = valid & (i0 >= 0) & (i0 <= n - 2)
-        idx.append(i0.clamp(0, n - 2).to(torch.int64))
-    base = (idx[0] * ny + idx[1]) * nz + idx[2]
+    base = 0
     if packed.dim() == 2:                     # slot k's voxels at k * V
-        V = packed.shape[1]
-        base = base + (torch.arange(packed.shape[0], device=X.device)
-                       * V)[:, None]
-    # corner order: bit 2 -> +x, bit 1 -> +y, bit 0 -> +z
-    k = torch.arange(8, device=X.device)
-    off = ((k >> 2) * ny + ((k >> 1) & 1)) * nz + (k & 1)
-    c = packed.reshape(-1)[base[..., None] + off]             # ONE gather
-    valid = valid & (c < 2.0).all(dim=-1)
-
-    # corner weights and the gradient's corner differences, built by
-    # products and slices (an index list would be a host-to-device copy)
-    wx, wy, wz = ((1 - a, a) for a in f)
-    w = torch.stack([wx[dx] * wy[dy] * wz[dz] for dx in (0, 1)
-                     for dy in (0, 1) for dz in (0, 1)], dim=-1)
-    phi = (c * w).sum(dim=-1)
-
-    # analytic gradient: corner differences along each axis, weighted by
-    # the other two axes' factors
-    def pairs(u, v):
-        return torch.stack([u[i] * v[j] for i in (0, 1) for j in (0, 1)], -1)
-
-    c3 = c.reshape(c.shape[:-1] + (2, 2, 2))       # [..., dx, dy, dz]
-    flat = c.shape[:-1] + (4,)
-    gx = ((c3[..., 1, :, :] - c3[..., 0, :, :]).reshape(flat)
-          * pairs(wy, wz)).sum(dim=-1)
-    gy = ((c3[..., :, 1, :] - c3[..., :, 0, :]).reshape(flat)
-          * pairs(wx, wz)).sum(dim=-1)
-    gz = ((c3[..., :, :, 1] - c3[..., :, :, 0]).reshape(flat)
-          * pairs(wx, wy)).sum(dim=-1)
-    grad = torch.stack([gx, gy, gz], dim=-1) / h
-    return phi, grad, valid
+        base = (torch.arange(packed.shape[0], device=X.device)
+                * packed.shape[1])[:, None]
+    idx, f, inside = icp_ops.corners(cfg, X, base)
+    c = packed.reshape(-1)[idx]                               # ONE gather
+    phi, grad = icp_ops.interpolate(c, f, cfg.voxel_size)
+    return phi, grad, inside & (c < 2.0).all(dim=-1)
 
 
 def _frame_points(depth_m: torch.Tensor, intr: Intrinsics,
@@ -139,64 +111,15 @@ def _frame_points(depth_m: torch.Tensor, intr: Intrinsics,
     return p, ok
 
 
-def _residuals(sdf_fn, cfg, icp, p_cam, p_ok, q, t):
-    """One fetch at pose (q, t): (X [P, 3], r [P] metres, g [P, 3],
-    wv [P] robust weights, 0 where invalid, n i32, rmse f32).
-    ``sdf_fn(X_world) -> (phi, grad_world, valid)`` is the model."""
-    X = quat_rotate(q, p_cam) + t
-    phi, grad, valid = sdf_fn(X)
-    # clamped cells (|tsdf| ~ 1) have zero gradient: drop them, so they
-    # cannot bias the Huber scale either
-    valid = valid & p_ok & (phi.abs() < 0.999)
-    r = phi * cfg.truncation
-    g = grad * cfg.truncation
-    w = torch.clamp_max(icp.huber_m / torch.clamp_min(r.abs(), 1e-12), 1.0)
-    wv = torch.where(valid, w, 0.0)
-    n = valid.sum().to(torch.int32)
-    rmse = torch.sqrt((wv * r * r).sum() / torch.clamp_min(wv.sum(), 1e-12))
-    return X, r, g, wv, n, rmse
-
-
-def _gn_align(sdf_fn, p_cam, p_ok, q0, t0, cfg: DenseMapConfig,
-              icp: DenseIcpConfig) -> IcpResult:
-    """Gauss-Newton alignment of back-projected points to an SDF model
-    from camera-to-world (q0, t0): ``icp.iters`` trips of one fetch and
-    one damped 6x6 solve; trip 0's fetch gives the initial stats and one
-    more fetch evaluates the final pose."""
-    q, t = q0, t0
-    eye = torch.eye(6, dtype=torch.float32, device=p_cam.device)
-    for k in range(icp.iters):
-        X, r, g, wv, n, rmse = _residuals(sdf_fn, cfg, icp, p_cam, p_ok,
-                                          q, t)
-        if k == 0:
-            n0, rmse0 = n, rmse
-        J = torch.cat([g, torch.linalg.cross(X, g, dim=-1)], dim=1)
-        Jw = J * wv[:, None]
-        H = Jw.T @ J
-        b = -(Jw * r[:, None]).sum(dim=0)
-        # Levenberg diagonal damping holds the directions the visible
-        # geometry leaves free (a single plane: 3 of them) at the prior
-        Hd = H + (icp.damping * torch.trace(H) / 6.0 + 1e-9) * eye
-        xi = torch.linalg.solve_ex(Hd, b[:, None]).result[:, 0]
-        # no valid point -> singular system -> NaN step: hold the pose
-        xi = torch.where(torch.isfinite(xi).all() & (n > 0), xi, 0.0)
-        T = (SE3.exp(xi) @ SE3(q, t)).normalize()
-        q, t = T.q, T.t
-    if icp.iters == 0:
-        n0 = torch.zeros((), dtype=torch.int32, device=p_cam.device)
-        rmse0 = torch.zeros((), dtype=torch.float32, device=p_cam.device)
-    _, _, _, _, n1, rmse1 = _residuals(sdf_fn, cfg, icp, p_cam, p_ok, q, t)
-    return IcpResult(q=q, t=t, num_valid=torch.minimum(n0, n1),
-                     rmse_init=rmse0, rmse=rmse1)
-
-
 def align_depth_to_tsdf(state: TSDFState, depth_m, q0, t0, intr: Intrinsics,
                         cfg: DenseMapConfig, icp: DenseIcpConfig) -> IcpResult:
-    """Align one metric depth image to the monolithic volume."""
-    packed = pack_volume(state)
+    """Align one metric depth image to the monolithic volume: a ring of
+    one slot, read in world coordinates."""
     p_cam, p_ok = _frame_points(depth_m, intr, cfg, icp.stride)
-    return _gn_align(functools.partial(_trilinear_sdf, packed, cfg), p_cam,
-                     p_ok, q0, t0, cfg, icp)
+    slot0 = torch.zeros(1, dtype=torch.int32, device=p_cam.device)
+    return IcpResult(*icp_ops.align(state.tsdf[None], state.weight[None],
+                                    slot0, None, None, p_cam, p_ok, q0, t0,
+                                    cfg, icp))
 
 
 def align_depth_to_atlas(atlas, slots, anchor_q, anchor_t, depth_m, q0, t0,
@@ -211,34 +134,17 @@ def align_depth_to_atlas(atlas, slots, anchor_q, anchor_t, depth_m, q0, t0,
                 duplicate carries the same values);
       anchor_q  [K, 4], anchor_t [K, 3]: each slot's anchor pose now.
 
-    Per trip: one [P, 8] corner gather per slot, the points moved into
-    each slot's anchor frame, then per point the newest valid slot wins:
-    overlapping submaps are slightly inconsistent rigid bodies, so their
-    normal equations are not summed. Local gradients reach the world
-    through the anchor rotation (X_l = R^T (X_w - t), so grad_w =
-    R grad_l)."""
+    Per trip each point is moved into each slot's anchor frame (X_l =
+    R^T (X_w - t)) until the first slot whose neighbourhood is valid,
+    newest first: overlapping submaps are slightly inconsistent rigid
+    bodies, so their normal equations are not summed. Local gradients
+    reach the world through the anchor rotation (grad_w = R grad_l)."""
     profiling.mark(None, depth_m)
-    slots = slots.to(torch.int64)
-    packed = torch.where(atlas.weight.index_select(0, slots) > 0,
-                         atlas.tsdf.index_select(0, slots),
-                         _SENTINEL).reshape(slots.shape[0], -1)  # [K, V]
     profiling.mark("icp_pack", depth_m)
-    R = quat_to_matrix(anchor_q)                                 # [K, 3, 3]
     p_cam, p_ok = _frame_points(depth_m, intr, cfg, icp.stride)
-    K = slots.shape[0]
-    ks = torch.arange(K, device=p_cam.device)[:, None]
-
-    def sdf_fn(X):                                               # [P, 3]
-        Xl = torch.matmul(X[None] - anchor_t[:, None], R)        # [K, P, 3]
-        phis, g, valids = _trilinear_sdf(packed, cfg, Xl)
-        gws = torch.matmul(g, R.transpose(1, 2))                 # to world
-        first = torch.argmax(valids.to(torch.uint8), dim=0)      # [P]
-        sel = (ks == first[None]) & valids
-        phi = torch.where(sel, phis, 0.0).sum(dim=0)
-        gw = torch.where(sel[..., None], gws, 0.0).sum(dim=0)
-        return phi, gw, valids.any(dim=0)
-
-    res = _gn_align(sdf_fn, p_cam, p_ok, q0, t0, cfg, icp)
+    res = IcpResult(*icp_ops.align(atlas.tsdf, atlas.weight,
+                                   slots.to(torch.int32), anchor_q, anchor_t,
+                                   p_cam, p_ok, q0, t0, cfg, icp))
     profiling.mark("icp_gn", depth_m)
     return res
 

@@ -82,6 +82,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kbslam_describe_keypoints.argtypes = [p, p, p, p, p, p, p,
                                               i, i, i, i, i, i, p]
     lib.kbslam_describe_keypoints.restype = i
+    f, ll = ctypes.c_float, ctypes.c_longlong
+    lib.kbslam_icp_fetch.argtypes = [p, p, i, ll, p, i, p, p, p, p, i, p, p,
+                                     i, i, i, f, f, f, f, f, f, p, p, p, p,
+                                     p, p]
+    lib.kbslam_icp_fetch.restype = i
     lib.kbslam_stage_mark.argtypes = [p, i, p]
     lib.kbslam_stage_mark.restype = i
     lib.kbslam_cuda_error_string.argtypes = [i]

@@ -841,3 +841,141 @@ def test_stage_marks_inside_the_shell_graphs(cuda_device):
         if r["kind"] == "count" and r["name"] == "shell.syncs":
             per[r["frame"]] = per.get(r["frame"], 0) + r["n"]
     assert per[11] == sum(syncs_on.values())
+
+
+ICP_DELTA = [0.025, -0.02, 0.02, 0.012, -0.015, 0.010]   # test_dense_icp.py
+
+
+def _icp_inputs(dev, case):
+    """tests/test_torch_icp.py's spheres fused by the port on the CPU, on
+    ``dev``: ("atlas") its two-submap atlas in a ring of 4 and the
+    window [1, 0, 0] (the older slot repeated, as the shells pad a short
+    window) with the stored anchors, or ("volume", "volume-3cm") its
+    monolithic volume at 5 cm or 3 cm voxels as a ring of one; frame 6's
+    points, the start pose perturbed from the truth, and 10 trips.
+    Returns the arguments of ``ops.icp.align``."""
+    from kbslam_torch.config import DenseIcpConfig, DenseMapConfig
+    from kbslam_torch.geom.se3 import SE3
+    from kbslam_torch.mapping import dense, submap
+    from kbslam_torch.mapping.icp import _frame_points
+
+    seq = synthetic.render_sequence(num_frames=12, height=240, width=320,
+                                    scene="spheres")
+    intr = Intrinsics.from_matrix(seq.K)
+
+    def qt(i):
+        T = SE3.from_matrix(torch.tensor(seq.poses[i], dtype=torch.float32))
+        return T.q, T.t
+
+    def depth(i):
+        return torch.from_numpy(seq.depth[i].astype(np.int32))
+
+    if case == "atlas":
+        cfg = DenseMapConfig(voxel_size=0.05, dims=(96, 96, 56),
+                             origin=(-2.4, -2.4, 0.6))
+        start, fuse = submap.make_submap_ops(cfg, intr, 4, 0.001)
+        atlas = submap.empty_atlas(cfg, 4, "cpu")
+        for a, frames in ((2, range(0, 6)), (8, range(6, 12))):
+            atlas = start(atlas, *qt(a), a)
+            for i in frames:
+                atlas = fuse(atlas, depth(i), *qt(i), *qt(a))
+        slots = torch.tensor([1, 0, 0], dtype=torch.int32)
+        vols = (atlas.tsdf, atlas.weight, slots, atlas.anchor_q[slots],
+                atlas.anchor_t[slots])
+    else:
+        # "volume-3cm": 3 cm voxels, where the float32 of the double 1 / h
+        # (torch's reciprocal for x / h on the card) and 1.0f / (float)h
+        # differ in the last bit
+        h = 0.05 if case == "volume" else 0.03
+        n = round(6.0 / h)
+        cfg = DenseMapConfig(voxel_size=h, dims=(n, n, round(2.0 / h)),
+                             origin=(-3.0, -3.0, -1.6))
+        fuse = dense.make_integrate(cfg, intr, 0.001)
+        vol = dense.empty_tsdf(cfg, "cpu")
+        for i in range(12):
+            vol = fuse(vol, depth(i), *qt(i))
+        vols = (vol.tsdf[None], vol.weight[None],
+                torch.zeros(1, dtype=torch.int32), None, None)
+    p_cam, p_ok = _frame_points(depth(6).to(torch.float32) * 0.001, intr,
+                                cfg, 4)
+    T0 = SE3.exp(torch.tensor(ICP_DELTA)) @ SE3(*qt(6))
+    args = (*vols, p_cam, p_ok, T0.q, T0.t)
+    return ([None if a is None else a.contiguous().to(dev) for a in args]
+            + [cfg, DenseIcpConfig(iters=10)])
+
+
+@pytest.mark.parametrize("case", ["atlas", "volume", "volume-3cm"])
+def test_icp_kernel_gives_the_twins_bits(cuda_device, case):
+    """The ICP fetch kernel against its plain twin on the card, on the
+    atlas (K = 3, a slot repeated) and the volume (K = 1, world
+    coordinates; at 3 cm voxels too, where the reciprocal of the voxel
+    size rounds otherwise in float32 than in double): the fetch's six
+    results at the start pose, and the whole solve's five, equal to the
+    bit. Bits and not a tolerance: the dense cell's refine turns a
+    last-bit difference into millimetres."""
+    from kbslam_torch.ops import icp as icp_ops
+
+    args = _icp_inputs(cuda_device, case)
+    vols, (q0, t0), (cfg, icp) = args[:7], args[7:9], args[9:]
+    got = icp_ops.make_fetch(*vols, cfg, icp)(q0, t0)
+    want = icp_ops.fetch_twin(*vols, cfg, icp)(q0, t0)
+    names = ("X", "r", "g", "wv", "n", "rmse")
+    for name, a, b in zip(names, got, want):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    assert 1000 < int(want[4]) < args[5].shape[0]
+    got = icp_ops.align(*args)
+    want = icp_ops.align_reference(*args)
+    for name, a, b in zip(("q", "t", "num_valid", "rmse_init", "rmse"), got,
+                          want):
+        assert torch.equal(a, b), (name, a, b)
+    assert float(want[4]) < float(want[3])
+
+
+def test_icp_graph_replays_are_bit_identical(cuda_device):
+    """The atlas solve captured in a CUDA graph: two replays give the same
+    bits, and the eager call's; a profiled replay runs the fetch kernel
+    iters + 1 times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kbslam_torch.device import graph_capture
+    from kbslam_torch.ops import icp as icp_ops
+
+    args = _icp_inputs(cuda_device, "atlas")
+    iters = args[-1].iters
+
+    def solve():
+        return torch.cat([r.reshape(-1).to(torch.float32)
+                          for r in icp_ops.align(*args)])
+
+    eager = solve()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solve()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with graph_capture(graph):
+        out = solve()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(out.clone())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(replays[0], replays[1])
+    assert torch.equal(replays[0], eager) and torch.equal(out, eager)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("icp_fetch_kernel" in n for n in names) == iters + 1, names
+
+
+def test_icp_eager_solve_counts_its_launches(cuda_device):
+    """An eager solve counts iters + 1 launches."""
+    from kbslam_torch.ops import icp as icp_ops
+
+    args = _icp_inputs(cuda_device, "volume")
+    icp_ops.reset_launches()
+    icp_ops.align(*args)
+    torch.cuda.synchronize()
+    assert icp_ops.launches == args[-1].iters + 1

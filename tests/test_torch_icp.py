@@ -21,6 +21,17 @@ frame 8):
 - an empty volume gives ``num_valid == 0`` and the pose back unchanged;
 - the atlas aligner follows re-posed anchors (tests/test_dense_icp.py:
   319-348).
+
+And the contract of the CUDA fetch kernel's plain twin (``ops/icp.py``), on
+the same spheres and atlas:
+
+- the in-place fetch (``weight > 0`` as the observed test) equals the
+  packed fetch exactly, with a slot repeated and an unobserved corner;
+- each point takes the first valid slot, newest first;
+- ``_gn_align`` fetches once a trip and once more, whatever the fetch;
+- an empty model gives ``num_valid == 0`` and the pose back unchanged;
+- ``_check`` and ``_check_pose`` reject what the kernel does not take,
+  and CPU tensors take the twin, leaving ``launches`` at 0.
 """
 import functools
 
@@ -39,8 +50,11 @@ from kbslam.mapping import icp as jicp
 from kbslam.mapping import submap as jsub
 from kbslam_torch import convert
 from kbslam_torch.geom.camera import Intrinsics as TIntr
+from kbslam_torch.geom.se3 import quat_rotate, quat_to_matrix
+from kbslam_torch.mapping.dense import TSDFState
 from kbslam_torch.mapping import icp as ticp
 from kbslam_torch.mapping import submap as tsub
+from kbslam_torch.ops import icp as icp_ops
 from kbslam_torch.slam import pose_T
 
 torch.set_num_threads(1)
@@ -277,3 +291,198 @@ def test_slots_come_from_the_atlas_ring():
     assert slots.tolist() == [1, 0, 0]
     np.testing.assert_array_equal(aq, atlas.anchor_q[slots])
     np.testing.assert_array_equal(at, atlas.anchor_t[slots])
+
+
+
+def _twin_args(case, unobserved=False, empty=False, pose=None):
+    """(``ops.icp.align``'s arguments on the CPU, the point made
+    unobserved or None): frame 6's points at stride 4 from ``pose``
+    (default the perturbed one), 10 trips, against ("atlas") the
+    two-submap atlas with the window [1, 0, 0] and its stored anchors,
+    or ("volume") the fused volume as a ring of one read in world
+    coordinates. ``unobserved``: one corner of a point that reads the
+    window's first slot loses its weight (its tsdf stays in [-1, 1]);
+    ``empty``: every weight 0."""
+    _, _, ti = _spheres()
+    if case == "atlas":
+        cfg, atlas = _atlas()
+        slots = np.array([1, 0, 0], np.int32)
+        vols = (atlas.tsdf, atlas.weight, slots, atlas.anchor_q[slots],
+                atlas.anchor_t[slots])
+    else:
+        cfg, st = _fused()
+        vols = (st.tsdf[None], st.weight[None], np.zeros(1, np.int32),
+                None, None)
+    tsdf, weight, slots, aq, at = (None if a is None else
+                                   torch.from_numpy(np.array(a))
+                                   for a in vols)
+    p_cam, p_ok = ticp._frame_points(
+        torch.from_numpy(_depth(6).astype(np.float32)) * 0.001, ti, cfg, 4)
+    q, t = (torch.from_numpy(a) for a in _pose(
+        _perturbed()[1] if pose is None else pose))
+    if empty:
+        weight.zero_()
+    p = None
+    if unobserved:
+        X = quat_rotate(q, p_cam) + t
+        valid = icp_ops.fetch_slots(tsdf, weight, slots, aq, at, cfg, X)[2]
+        p = int(torch.nonzero(valid[0] & p_ok)[0])
+        Xl = _local(X[p:p + 1], aq, at)[:1]
+        idx = icp_ops.corners(cfg, Xl, int(slots[0]) * weight[0].numel())[0]
+        weight.view(-1)[idx[0, 0, 5]] = 0.0
+        assert abs(float(tsdf.view(-1)[idx[0, 0, 5]])) <= 1.0
+    return (tsdf, weight, slots, aq, at, p_cam, p_ok, q, t, cfg,
+            DenseIcpConfig(iters=10)), p
+
+
+def _local(X, aq, at):
+    """World points X [P, 3] in each anchor's frame, [K, P, 3] (the
+    world itself, [1, P, 3], without anchors)."""
+    if aq is None:
+        return X[None]
+    return torch.matmul(X[None] - at[:, None], quat_to_matrix(aq))
+
+
+@pytest.mark.parametrize("case", ["volume", "atlas"])
+@pytest.mark.parametrize("unobserved", [False, True])
+def test_in_place_fetch_equals_the_packed_fetch(case, unobserved):
+    """``fetch_slots`` reads each slot's tsdf and weight in place; the
+    JAX package's form packs each slot with the sentinel first
+    (``pack_volume``, ``_trilinear_sdf``): phi, gradient and valid are
+    equal to the bit, with the window's repeated slot and with an
+    unobserved corner whose tsdf looks like a fused one."""
+    (tsdf, weight, slots, aq, at, p_cam, p_ok, q, t, cfg, _), p = \
+        _twin_args(case, unobserved)
+    X = quat_rotate(q, p_cam) + t
+    phis, grads, valids = icp_ops.fetch_slots(tsdf, weight, slots, aq, at,
+                                              cfg, X)
+    packed = torch.stack([ticp.pack_volume(TSDFState(tsdf[s], weight[s]))
+                          for s in slots.tolist()])
+    phi, grad, valid = ticp._trilinear_sdf(
+        packed, cfg, _local(X, aq, at).expand(len(slots), -1, -1))
+    if aq is not None:
+        grad = torch.matmul(grad, quat_to_matrix(aq).transpose(1, 2))
+    assert torch.equal(valids, valid)
+    assert torch.equal(phis, phi) and torch.equal(grads, grad)
+    assert 1000 < int(valid[0].sum()) < valid.shape[1]
+    if unobserved:
+        assert not valid[0, p]
+
+
+@pytest.mark.parametrize("unobserved", [False, True])
+def test_each_point_takes_its_first_valid_slot(unobserved):
+    """The kernel's rule, walking the slots newest first and stopping at
+    the first valid one, picks the slot of the twin's ``argmax``
+    selection, and ``fetch_reference`` returns that slot's values."""
+    (tsdf, weight, slots, aq, at, p_cam, p_ok, q, t, cfg, _), p = \
+        _twin_args("atlas", unobserved)
+    X = quat_rotate(q, p_cam) + t
+    phis, grads, valids = icp_ops.fetch_slots(tsdf, weight, slots, aq, at,
+                                              cfg, X)
+    first = torch.full(X.shape[:1], -1)
+    for k in range(len(slots)):
+        first = torch.where((first < 0) & valids[k], k, first)
+    found = first >= 0
+    assert torch.equal(first[found],
+                       torch.argmax(valids.to(torch.uint8), dim=0)[found])
+    phi, grad, valid = icp_ops.fetch_reference(tsdf, weight, slots, aq, at,
+                                               cfg, X)
+    pts = torch.arange(X.shape[0])[found]
+    assert torch.equal(valid, found)
+    assert torch.equal(phi[found], phis[first[found], pts])
+    assert torch.equal(grad[found], grads[first[found], pts])
+    assert (phi[~found] == 0).all() and (first > 0).any()
+    if unobserved:
+        assert first[p] != 0
+
+
+@pytest.mark.parametrize("iters", [0, 3, 10])
+def test_gn_align_fetches_once_a_trip_and_once_more(iters):
+    """``_gn_align`` drives any fetch (on the card the kernel's): iters + 1
+    fetches, each at the pose the trip before left, the stats from the
+    first and the last (none before the solve when iters is 0), and the
+    atlas twin's result when the fetch is the twin's."""
+    args, _ = _twin_args("atlas")
+    tsdf, weight, slots, aq, at, p_cam, p_ok, q, t, cfg, _ = args
+    icp = DenseIcpConfig(iters=iters)
+    sdf = functools.partial(icp_ops.fetch_reference, tsdf, weight, slots,
+                            aq, at, cfg)
+    seen = []
+
+    def fetch(qk, tk):
+        seen.append((qk, tk))
+        return icp_ops._residuals(sdf, cfg, icp, p_cam, p_ok, qk, tk)
+
+    got = icp_ops._gn_align(fetch, q, t, icp)
+    want = icp_ops.align_reference(*args[:-1], icp)
+    assert len(seen) == iters + 1
+    assert torch.equal(seen[0][0], q) and torch.equal(seen[-1][0], got[0])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    first = fetch(q, t)
+    assert int(got[2]) == (0 if iters == 0 else
+                           min(int(first[4]), int(fetch(*got[:2])[4])))
+    assert float(got[3]) == (0.0 if iters == 0 else float(first[5]))
+
+
+@pytest.mark.parametrize("case", ["volume", "atlas"])
+def test_twins_on_an_empty_model_hold_the_pose(case):
+    """Every weight 0: no point is valid in any fetch, ``align`` gives
+    ``num_valid == 0`` and the pose back unchanged (the guard holds it)."""
+    (tsdf, weight, slots, aq, at, p_cam, p_ok, q, t, cfg, icp), _ = \
+        _twin_args(case, empty=True, pose=_perturbed(1)[0])
+    X = quat_rotate(q, p_cam) + t
+    assert not icp_ops.fetch_reference(tsdf, weight, slots, aq, at, cfg,
+                                       X)[2].any()
+    r = icp_ops.align(tsdf, weight, slots, aq, at, p_cam, p_ok, q, t, cfg,
+                      icp)
+    assert int(r[2]) == 0
+    assert torch.equal(r[0], q) and torch.equal(r[1], t)
+
+
+def test_check_rejects_what_the_kernel_does_not_take():
+    """``ops.icp._check`` passes the atlas's arguments and raises on a
+    wrong dtype, a wrong shape, a non-contiguous tensor or a lone
+    anchor."""
+    args, _ = _twin_args("atlas")
+    good = list(args[:7]) + [args[9]]
+    icp_ops._check(*good)
+    tsdf, weight, slots, aq, at, p_cam, p_ok, cfg = good
+    bad = [(0, tsdf.double()), (1, weight.half()), (2, slots.long()),
+           (6, p_ok.to(torch.uint8)), (0, tsdf[:, :-1].contiguous()),
+           (2, slots[:2]), (3, aq[:, :3].contiguous()),
+           (5, p_cam[:, :2].contiguous()), (6, p_ok[1:]),
+           (0, tsdf.transpose(1, 2)), (5, p_cam.t().contiguous().t()),
+           (4, None)]
+    for i, x in bad:
+        a = list(good)
+        a[i] = x
+        with pytest.raises(ValueError):
+            icp_ops._check(*a)
+
+
+def test_check_pose_rejects_what_the_kernel_does_not_take():
+    """``ops.icp._check_pose`` passes the start pose and raises on a wrong
+    dtype, a wrong shape or another device."""
+    args, _ = _twin_args("atlas")
+    q, t = args[7:9]
+    cpu = torch.device("cpu")
+    icp_ops._check_pose(q, t, cpu)
+    for bad in ((q.double(), t), (q, t.half()), (q[:3], t), (q, t[None]),
+                (q, t.to("meta"))):
+        with pytest.raises(ValueError):
+            icp_ops._check_pose(*bad, cpu)
+
+
+def test_cpu_tensors_take_the_twin():
+    """On the CPU ``align`` is ``align_reference`` and launches nothing,
+    through the aligner's own entry too."""
+    args, _ = _twin_args("atlas")
+    icp_ops.reset_launches()
+    got = icp_ops.align(*args)
+    for a, b in zip(got, icp_ops.align_reference(*args)):
+        assert torch.equal(a, b)
+    _align_atlas(np.array([1, 0, 0], np.int32),
+                 *(a.numpy() for a in args[3:5]),
+                 *(a.numpy() for a in args[7:9]), args[-1], "torch")
+    assert icp_ops.launches == 0
